@@ -1,0 +1,73 @@
+"""GPU generation registry: the data-sheet figures the device code reads.
+
+The counterpart of `TpuGeneration`/`generation_for_device` in
+`kubeoperator_tpu/parallel/topology.py`, cut to the fields the
+diagnostics use: the memory rate and peak rates that bound a reading
+(`koctl tpu diag`'s honesty guards, `chip_smoke.py`'s kernel bounds) and
+a per-link interconnect figure.
+
+Figures are NVIDIA's published data-sheet values ("NVIDIA H100 Tensor
+Core GPU" data sheet: the H100 SXM, H100 NVL and H100 PCIe columns),
+dense rates without sparsity, at each part's full power limit. A card set
+below its maximum power runs slower under load; readers compare against
+these figures with the card's power limit beside them.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+
+@dataclass(frozen=True)
+class GpuGeneration:
+    """Static data-sheet facts about one GPU part."""
+
+    name: str
+    hbm_gbps_per_chip: float       # device-memory bandwidth, GB/s
+    bf16_tflops_per_chip: float    # dense bf16 tensor-core peak
+    fp32_tflops_per_chip: float    # float32 peak outside the tensor cores
+    nvlink_gbps_per_link: float    # per-direction NVLink 4 link bandwidth
+
+
+GENERATIONS: dict[str, GpuGeneration] = {
+    g.name: g
+    for g in (
+        # 18 NVLink 4 links, 900 GB/s in all both ways: 25 GB/s per link
+        # per direction
+        GpuGeneration(name="h100-sxm", hbm_gbps_per_chip=3350.0,
+                      bf16_tflops_per_chip=989.0, fp32_tflops_per_chip=67.0,
+                      nvlink_gbps_per_link=25.0),
+        GpuGeneration(name="h100-nvl", hbm_gbps_per_chip=3900.0,
+                      bf16_tflops_per_chip=835.0, fp32_tflops_per_chip=60.0,
+                      nvlink_gbps_per_link=25.0),
+        GpuGeneration(name="h100-pcie", hbm_gbps_per_chip=2000.0,
+                      bf16_tflops_per_chip=756.0, fp32_tflops_per_chip=51.0,
+                      nvlink_gbps_per_link=25.0),
+    )
+}
+
+
+def generation_for_name(name: str) -> GpuGeneration | None:
+    """Map a CUDA device name ("NVIDIA H100 80GB HBM3", "NVIDIA H100
+    PCIe", "NVIDIA H100 NVL") to its registry entry; None if unknown."""
+    kind = name.lower()
+    if "h100" not in kind:
+        return None
+    if "nvl" in kind:
+        return GENERATIONS["h100-nvl"]
+    if "pcie" in kind:
+        return GENERATIONS["h100-pcie"]
+    if "hbm3" in kind or "sxm" in kind:
+        return GENERATIONS["h100-sxm"]
+    return None
+
+
+def generation_for_device(device: torch.device) -> GpuGeneration | None:
+    """Registry entry of a `torch.device`; None for CPU or unknown parts,
+    which callers refuse as `bench.py` and `koctl tpu diag` do."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return generation_for_name(torch.cuda.get_device_name(device))

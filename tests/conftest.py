@@ -110,3 +110,8 @@ def pytest_configure(config):
         "slow: budgeted heavy tests (multi-process bootstraps); run in CI, "
         "deselect locally with -m 'not slow'",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (kernels of kubeoperator_tpu_torch); skips "
+        "without one",
+    )
