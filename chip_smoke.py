@@ -7,7 +7,9 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc.
 It builds the port's kernels from `kubeoperator_tpu_torch/csrc/`, holds
 each against its plain PyTorch version on the card, drives the port's
 node-validation path (`koctl tpu diag` at its defaults, then the Ready
-gate `psum_smoke.main`) and shows that the path launched the kernels.
+gate `psum_smoke.main`), then the multi-device path's kernel and checks
+(the explicit ring all-gather in its one-card form, ring attention), and
+shows that each path launched its kernels.
 
 Phases; any failure ends the run with a non-zero exit and no result line:
   1. card name and power limit (nvidia-smi), the registry entry
@@ -16,6 +18,18 @@ Phases; any failure ends the run with a non-zero exit and no result line:
   4. K1 timing at 62,464 rows (256 MB): kernel, bound, plain, library
   5. `koctl tpu diag` in-process, with the launch counts set to 0 before
   6. `psum_smoke.main()` with KO_TPU_EXPECTED_CHIPS=1
+  7. K2 (ring_all_gather, one card, n virtual ranks) against its plain
+     version: n = 2, 4, 8 in f32 and bf16 at the verify shape (arange) and
+     the bench shape (3,904-row seeded randn shards), bit-exact; 200
+     back-to-back launches at n = 8; invalid inputs raise ValueError
+  8. K2 timing at n = 4 and 8 with 16 MB shards: kernel, bound, plain,
+     library; busbw of `bench_ring_all_gather(ranks=8)` (HBM to HBM)
+  9. the multi-device path's entry points on one card, counts from 0:
+     `verify_ring_all_gather(ranks=2, 4, 8)`, `bench_ring_all_gather
+     (ranks=8)`, `verify_ring_attention()` causal and not,
+     `bench_ring_attention(seq_per_device=256, iters=4)`
+ 10. with 2 or more cards only: 2 processes through the KO_TPU_* env
+     contract, each running `tpu diag` and the gate at 2 chips
 Then the kernels line (JSON) and, last, the result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 A copy of everything measured goes to chiprun_out/chip_smoke.json.
@@ -45,6 +59,10 @@ ROOT = Path(__file__).resolve().parent
 # holds with room while a wrong row, tile or block would be off by ~1.
 RTOL, ATOL = 1e-5, 1e-3
 DIAG_SIZE_ROWS = (256, 2048, 62464)   # 62,464 rows = tpu diag's 256 MB
+RING_RANKS = (2, 4, 8)
+RING_SHARD_ROWS = 3904                # bench_ring_all_gather's 16 MB shard
+RING_REPEATS = 200                    # back-to-back launches at n = 8
+NVLINK_GBPS = 450.0                   # one NVLink direction (data sheet)
 
 
 def fail(msg: str) -> None:
@@ -80,6 +98,222 @@ def capture(fn, *args):
     return rc, text
 
 
+def check_ring(dev, rg) -> float:
+    """Phase 7: K2 in its one-card form against its plain version and the
+    input, bit for bit; returns the largest |kernel - plain| seen (0)."""
+    import torch
+
+    ring, plain = rg.ring_all_gather, rg.ring_all_gather_reference
+    worst = 0.0
+    for n in RING_RANKS:
+        for dtype in (torch.float32, torch.bfloat16):
+            gen = torch.Generator(device=dev).manual_seed(n)
+            shapes = {
+                "verify": torch.arange(8 * n * 1024, dtype=torch.float32,
+                                       device=dev).view(8 * n, 1024),
+                "bench": torch.randn((RING_SHARD_ROWS * n, 1024), device=dev,
+                                     generator=gen),
+            }
+            for what, x in shapes.items():
+                x = x.to(dtype)
+                out = ring(x, ranks=n)
+                ref = plain(x.view(n, -1, 1024))
+                torch.cuda.synchronize()
+                rg.raise_on_ring_error()
+                if not torch.equal(out, x.expand(n, -1, -1)):
+                    fail(f"K2 n={n} {dtype} {what}: output is not the input")
+                if not torch.equal(out, ref):
+                    fail(f"K2 n={n} {dtype} {what}: differs from the plain version")
+                worst = max(worst, float((out.float() - ref.float()).abs().max()))
+            print(f"phase 7: K2 n={n} {str(dtype)[6:]} verify and bench shapes "
+                  "bit-exact against the input and the plain version",
+                  flush=True)
+    # back to back, two inputs in turn: a race, or a slot read before it
+    # was written, leaves the other input's bytes behind
+    n = RING_RANKS[-1]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    xs = [torch.randn((RING_SHARD_ROWS * n, 1024), device=dev, generator=gen)
+          for _ in range(2)]
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(RING_REPEATS):
+        x = xs[i % 2]
+        bad += (ring(x, ranks=n) != x.expand(n, -1, -1)).sum()
+    mismatches = int(bad.item())
+    seconds = time.perf_counter() - t0
+    rg.raise_on_ring_error()
+    if mismatches:
+        fail(f"K2: {mismatches} wrong elements over {RING_REPEATS} launches")
+    print(f"phase 7: K2 {RING_REPEATS} back-to-back launches at n={n} all "
+          f"exact ({seconds:.2f} s with the checks), error word clear",
+          flush=True)
+    ones = torch.ones(16 * 1024 + 4, device=dev)
+    invalid = {
+        "rows % n": (torch.ones((12, 1024), device=dev), 8),
+        "misaligned": (ones[1:16 * 1024 + 1].view(16, 1024), 2),
+        "non-contiguous": (torch.ones((1024, 16), device=dev).t(), 2),
+        "n > 8": (torch.ones((72, 1024), device=dev), 9),
+    }
+    for what, (x_bad, n_bad) in invalid.items():
+        try:
+            ring(x_bad, ranks=n_bad)
+        except ValueError:
+            continue
+        fail(f"K2 accepted invalid input ({what})")
+    print(f"phase 7: {len(invalid)} invalid inputs raise ValueError", flush=True)
+    return worst
+
+
+def time_ring(dev, rg, hbm_gbps: float) -> dict:
+    """Phase 8: K2 against its bound, its plain version and one broadcast
+    copy, per ring size, with 16 MB f32 shards."""
+    import torch
+
+    rows = {}
+    for n in (4, 8):
+        gen = torch.Generator(device=dev).manual_seed(n)
+        x = torch.randn((RING_SHARD_ROWS * n, 1024), device=dev, generator=gen)
+        shards = x.view(n, RING_SHARD_ROWS, 1024)
+        out = torch.empty((n, RING_SHARD_ROWS * n, 1024), device=dev)
+        kernel_ms = event_ms(lambda: rg.ring_all_gather(x, ranks=n))
+        plain_ms = event_ms(lambda: rg.ring_all_gather_reference(shards))
+        library_ms = event_ms(
+            lambda: out.copy_(x.unsqueeze(0).expand(n, -1, -1)))
+        rg.raise_on_ring_error()
+        chunk_bytes = RING_SHARD_ROWS * 1024 * 4
+        # least traffic: n outputs of n chunks written, each shard read once;
+        # no arithmetic, so bytes bound it
+        bound_ms = (n * n + n) * chunk_bytes / (hbm_gbps * 1e9) * 1e3
+        # the protocol's own traffic: own copy (1 read, 2 writes), then per
+        # step a push and a copy-out (2 reads, 2 writes)
+        protocol_ms = n * (3 + 4 * (n - 1)) * chunk_bytes / (hbm_gbps * 1e9) * 1e3
+        rows[n] = dict(kernel_ms=kernel_ms, bound_ms=bound_ms,
+                       protocol_bytes_ms=protocol_ms, plain_ms=plain_ms,
+                       library_ms=library_ms, chunk_bytes=chunk_bytes)
+        print(f"phase 8: K2 n={n} 16 MB shards kernel_ms={kernel_ms:.4f} "
+              f"bound_ms={bound_ms:.4f} (bytes) "
+              f"protocol_bytes_ms={protocol_ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms={library_ms:.4f} (broadcast copy)", flush=True)
+        del x, shards, out
+    rg.ring_all_gather.launches = 0
+    bench = rg.bench_ring_all_gather(ranks=8)
+    per_call = rg.ring_all_gather.launches
+    print(f"phase 8: bench_ring_all_gather(ranks=8) busbw="
+          f"{bench.busbw_gbps:.1f} GB/s (HBM-to-HBM on one card, not a link "
+          f"figure) launches_per_call={per_call}", flush=True)
+    return dict(times=rows, bench=bench.to_dict(), launches_per_bench=per_call)
+
+
+# run by each process of phase 10: tpu diag and the gate at 2 chips
+_RANK_SCRIPT = """
+import contextlib, io, json, sys
+sys.path.insert(0, {root!r})
+import torch, torch.distributed as dist
+from kubeoperator_tpu_torch.cli import koctl
+from kubeoperator_tpu_torch.ops import psum_smoke, ring_gather as rg
+from kubeoperator_tpu_torch.parallel.mesh import flat_axis_mesh
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    rc = koctl.main(["tpu", "diag"])
+report = json.loads(buf.getvalue())
+diag_launches = rg.ring_all_gather.launches
+smoke = psum_smoke.run_smoke()
+mesh = flat_axis_mesh()
+n, rank = dist.get_world_size(), dist.get_rank()
+x = torch.randn(({rows} * n, 1024), device="cuda",
+                generator=torch.Generator(device="cuda").manual_seed(0))
+local = x[rank * {rows}:(rank + 1) * {rows}]
+gathered = torch.empty_like(x)
+def ms(fn, reps=20):
+    for _ in range(3):
+        fn()
+    dist.barrier()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+exact = torch.equal(rg.ring_all_gather(x, mesh), x)
+kernel_ms = ms(lambda: rg.ring_all_gather(x, mesh))
+library_ms = ms(lambda: dist.all_gather_into_tensor(gathered, local))
+rg.raise_on_ring_error()
+print("RANK_RESULT " + json.dumps(dict(
+    rank=rank, rc=rc, report=report, diag_launches=diag_launches, smoke=smoke,
+    exact=exact, kernel_ms=kernel_ms, library_ms=library_ms)), flush=True)
+dist.barrier()
+dist.destroy_process_group()
+"""
+
+
+def multi_card(torch) -> dict | None:
+    """Phase 10: the process-per-card form of K2 through `tpu diag` and the
+    gate in 2 processes, where 2 or more cards are visible."""
+    if torch.cuda.device_count() < 2:
+        print("phase 10: not run: 1 card visible; the process-per-card ring "
+              "and the gate at 2 chips need 2 or more", flush=True)
+        return None
+    import socket
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print("phase 10: cards: " + "; ".join(smi.splitlines()), flush=True)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    script = _RANK_SCRIPT.format(root=str(ROOT), rows=RING_SHARD_ROWS)
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, KO_TPU_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                   KO_TPU_NUM_PROCESSES="2", KO_TPU_PROCESS_ID=str(rank),
+                   KO_TPU_EXPECTED_CHIPS="2")
+        env.pop("KO_TPU_TRAIN_STEPS", None)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", script], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    results = []
+    try:
+        for proc in procs:
+            out, err = proc.communicate(timeout=420)
+            if proc.returncode != 0:
+                fail(f"phase 10 rank exit {proc.returncode}: {err[-3000:]}")
+            line = [ln for ln in out.splitlines()
+                    if ln.startswith("RANK_RESULT ")]
+            results.append(json.loads(line[0].split(" ", 1)[1]))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    chunk_bytes = RING_SHARD_ROWS * 1024 * 4
+    bound_ms = chunk_bytes / (NVLINK_GBPS * 1e9) * 1e3  # (n - 1) chunks, n = 2
+    for r in results:
+        rep, smoke = r["report"], r["smoke"]
+        if not (rep["ring_all_gather_correct"] and rep["ring_attention_correct"]
+                and smoke["ok"] and smoke["ring_attention_correct"]
+                and smoke["chips"] == 2 and r["exact"]):
+            fail(f"phase 10 rank {r['rank']}: {rep.get('ring_all_gather_correct')} "
+                 f"{rep.get('ring_attention_correct')} {smoke}")
+        if r["diag_launches"] == 0:
+            fail(f"phase 10 rank {r['rank']}: tpu diag did not launch K2")
+        print(f"phase 10: rank {r['rank']} tpu diag and gate ok at 2 chips; "
+              f"K2 launches in diag={r['diag_launches']} "
+              f"ring busbw={rep['pallas_ring']['busbw_gbps']:.1f} GB/s; "
+              f"16 MB shard kernel_ms={r['kernel_ms']:.4f} "
+              f"bound_ms={bound_ms:.4f} (one NVLink direction) "
+              f"library_ms={r['library_ms']:.4f} (all_gather_into_tensor)",
+              flush=True)
+    multi = dict(cards=smi, ranks=results, bound_ms=bound_ms)
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_multi.json").write_text(json.dumps(multi, indent=2))
+    return multi
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -88,8 +322,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    from kubeoperator_tpu_torch import ops as port_ops
     from kubeoperator_tpu_torch.cli import koctl
     from kubeoperator_tpu_torch.ops import _build, psum_smoke
+    from kubeoperator_tpu_torch.ops import ring_gather as rg
     from kubeoperator_tpu_torch.ops import dma_read as dma_mod
     from kubeoperator_tpu_torch.parallel.topology import generation_for_device
 
@@ -226,10 +462,46 @@ def main() -> int:
         fail(f"smoke gate not ok: {smoke}")
     print("phase 6: smoke gate ok", flush=True)
 
+    # 7-8. K2 against its plain version, then its times
+    ring_err = check_ring(dev, rg)
+    ring_times = time_ring(dev, rg, gen.hbm_gbps_per_chip)
+
+    # 9. the multi-device path's entry points on one card, counts from 0
+    ring_all_gather = rg.ring_all_gather
+    ring_all_gather.launches = 0
+    dma_read.launches = 0
+    path = {f"ring_all_gather_correct_n{n}": port_ops.verify_ring_all_gather(ranks=n)
+            for n in RING_RANKS}
+    path["pallas_ring_n8"] = port_ops.bench_ring_all_gather(ranks=8).to_dict()
+    path["ring_attention_correct"] = port_ops.verify_ring_attention()
+    path["ring_attention_correct_noncausal"] = port_ops.verify_ring_attention(
+        causal=False)
+    path["ring_attention"] = port_ops.bench_ring_attention(
+        seq_per_device=256, iters=4).to_dict()
+    ring_launches = ring_all_gather.launches
+    if not all(v is True for k, v in path.items() if "correct" in k):
+        fail(f"multi-device path checks failed on one card: {path}")
+    ra = path["ring_attention"]
+    if not (math.isfinite(ra["tflops"]) and ra["tflops"] > 0
+            and ra["time_per_iter_s"] > 0):
+        fail(f"bench_ring_attention not finite and positive: {ra}")
+    if ring_launches == 0:
+        fail("the multi-device path did not launch K2")
+    print(f"phase 9: verify_ring_all_gather(ranks=2,4,8) True; ring attention "
+          f"verifies causal and not; bench_ring_attention {ra}; "
+          f"K2 launched {ring_launches} times, K1 {dma_read.launches}",
+          flush=True)
+
     import torch.distributed as dist
 
     if dist.is_initialized():
         dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # 10. two processes, one card each, where there are two cards
+    multi = multi_card(torch)
+    n8 = ring_times["times"][8]
+    forms = ["one card, virtual ranks"] + (["process per card"] if multi else [])
     kernels = {"kernels": [{
         "name": "dma_read", "route": "cuda",
         "source": "kubeoperator_tpu_torch/csrc/dma_read.cu",
@@ -237,10 +509,19 @@ def main() -> int:
         "launches": diag_launches, "max_abs_err": max_abs_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": library_ms,
+    }, {
+        "name": "ring_all_gather", "route": "cuda",
+        "source": "kubeoperator_tpu_torch/csrc/ring_all_gather.cu",
+        "replaces": "kubeoperator_tpu/ops/pallas_kernels.py:153",
+        "launches": ring_launches, "max_abs_err": ring_err,
+        "ms": n8["kernel_ms"], "plain_ms": n8["plain_ms"],
+        "bound_ms": n8["bound_ms"], "bound_by": "bytes",
+        "library_ms": n8["library_ms"], "host_forms": forms,
     }]}
     record.update(kernels=kernels, diag=report, smoke=smoke,
                   launches_per_bandwidth_call=per_call,
-                  bandwidth_call=bw.to_dict(),
+                  bandwidth_call=bw.to_dict(), ring=ring_times,
+                  multi_device_path=path, multi_card=multi,
                   seconds=time.perf_counter() - t_start)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

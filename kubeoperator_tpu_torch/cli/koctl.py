@@ -41,7 +41,7 @@ def _profile(profile_dir: str, dev: torch.device):
 def cmd_tpu_diag(args) -> int:
     """Local diagnostics on this rank's card: tensor-core throughput, the
     memory triad, the explicit-copy read kernel and — with 2 or more ranks —
-    the collective suite."""
+    the collective suite, the explicit ring all-gather and ring attention."""
     from kubeoperator_tpu_torch import ops
 
     dev = initialize_from_env("cpu" if args.cpu else None)
@@ -103,10 +103,14 @@ def cmd_tpu_diag(args) -> int:
             report["collectives"] = [
                 r.to_dict() for r in ops.run_collective_suite()
             ]
-            raise NotImplementedError(
-                "the explicit ring all-gather (kernel K2) and the ring "
-                "attention check at 2 or more ranks are not ported yet "
-                "(ROADMAP.md B1, A3)")
+            # the explicit ring (kernel K2) pins traffic to neighbour links,
+            # so one slow link shows instead of being averaged away
+            report["ring_all_gather_correct"] = ops.verify_ring_all_gather()
+            report["pallas_ring"] = ops.bench_ring_all_gather().to_dict()
+            # composed long-context path: exact ring attention over the ring
+            report["ring_attention_correct"] = ops.verify_ring_attention()
+            report["ring_attention"] = ops.bench_ring_attention(
+                seq_per_device=256, iters=4).to_dict()
     if args.profile_dir:
         report["profile_dir"] = args.profile_dir
     print(json.dumps(report, indent=2))

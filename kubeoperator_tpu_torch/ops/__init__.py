@@ -6,12 +6,18 @@
   hbm.py          device-memory stream bandwidth (one-pass triad)
   dma_read.py     explicit double-buffered copy read stream: kernel K1,
                   hand-written CUDA in csrc/dma_read.cu
-  psum_smoke.py   the cluster smoke test: correctness + psum bus-bandwidth,
-                  emitting KO_TPU_SMOKE_RESULT
+  ring_gather.py  explicit neighbour ring all-gather: kernel K2,
+                  hand-written CUDA in csrc/ring_all_gather.cu (one card
+                  with n virtual ranks, or one process per card)
+  longcontext_check.py  ring-attention exactness + throughput over the
+                  ring (the long-context path of parallel/longcontext.py)
+  psum_smoke.py   the cluster smoke test: correctness, ring attention at
+                  2+ ranks, psum bus-bandwidth, emitting KO_TPU_SMOKE_RESULT
 
 Only what is ported is exported; see ROADMAP.md for the rest. The kernel
-wrapper itself stays in its module (`ops.dma_read.dma_read`, with its
-launch count `ops.dma_read.dma_read.launches`).
+wrappers themselves stay in their modules (`ops.dma_read.dma_read`,
+`ops.ring_gather.ring_all_gather`), each with its launch count
+(`.launches`).
 """
 
 from kubeoperator_tpu_torch.ops.collectives import (
@@ -25,7 +31,17 @@ from kubeoperator_tpu_torch.ops.dma_read import (
     dma_read_bandwidth_gbps,
 )
 from kubeoperator_tpu_torch.ops.hbm import HbmResult, hbm_bandwidth_gbps
+from kubeoperator_tpu_torch.ops.longcontext_check import (
+    RingAttentionResult,
+    bench_ring_attention,
+    verify_ring_attention,
+)
 from kubeoperator_tpu_torch.ops.matmul import MatmulResult, mxu_matmul_tflops
+from kubeoperator_tpu_torch.ops.ring_gather import (
+    bench_ring_all_gather,
+    ring_all_gather,
+    verify_ring_all_gather,
+)
 
 __all__ = [
     "CollectiveResult",
@@ -36,6 +52,12 @@ __all__ = [
     "dma_read_bandwidth_gbps",
     "HbmResult",
     "hbm_bandwidth_gbps",
+    "RingAttentionResult",
+    "bench_ring_attention",
+    "verify_ring_attention",
     "MatmulResult",
     "mxu_matmul_tflops",
+    "bench_ring_all_gather",
+    "ring_all_gather",
+    "verify_ring_all_gather",
 ]

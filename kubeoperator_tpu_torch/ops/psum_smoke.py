@@ -1,8 +1,9 @@
 """The cluster smoke test that gates Ready (port of `ops/psum_smoke.py`).
 
 Runs on every rank (one process per GPU): join the process group from the
-env contract, check all-reduce correctness, sweep all-reduce bus
-bandwidth, and emit the one-line result the adm post-hook parses:
+env contract, check all-reduce correctness, at 2 or more ranks check exact
+ring attention over the same ranks, sweep all-reduce bus bandwidth, and
+emit the one-line result the adm post-hook parses:
 
     KO_TPU_SMOKE_RESULT {"gbps": ..., "chips": ..., "ok": true, ...}
 
@@ -10,9 +11,8 @@ bandwidth, and emit the one-line result the adm post-hook parses:
 correctness holds and the chip count matches `KO_TPU_EXPECTED_CHIPS`;
 bandwidth thresholds are enforced server-side, as in the reference.
 
-Not ported yet, and refused rather than skipped: the ring-attention check
-that the reference runs at two or more chips (ROADMAP.md A3) and the
-train smoke behind `KO_TPU_TRAIN_STEPS>0` (ROADMAP.md A7).
+Not ported yet, and refused rather than skipped: the train smoke behind
+`KO_TPU_TRAIN_STEPS>0` (ROADMAP.md A7).
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ from kubeoperator_tpu_torch.ops.collectives import (
     bench_collective,
     verify_psum_correctness,
 )
+from kubeoperator_tpu_torch.ops.longcontext_check import verify_ring_attention
 from kubeoperator_tpu_torch.parallel.mesh import flat_axis_mesh
 from kubeoperator_tpu_torch.parallel.multislice import initialize_from_env
 
@@ -48,10 +49,12 @@ def run_smoke(
     expected = int(os.environ.get("KO_TPU_EXPECTED_CHIPS", "0"))
     mesh = flat_axis_mesh(device_type=dev.type)
     ok = verify_psum_correctness(mesh)
+
+    # long-context path: exact ring attention over the same ranks, which
+    # catches permute-ordering and mask bugs a psum cannot see
+    ring_ok = True
     if chips >= 2:
-        raise NotImplementedError(
-            "the ring-attention check at 2 or more chips is not ported yet "
-            "(ROADMAP.md A3)")
+        ring_ok = verify_ring_attention(flat_axis_mesh("sp", device_type=dev.type))
 
     best = 0.0
     table = []
@@ -63,9 +66,10 @@ def run_smoke(
     return {
         "gbps": round(best, 3),
         "chips": chips,
-        "ok": bool(ok) and (expected == 0 or chips == expected),
+        "ok": bool(ok) and bool(ring_ok)
+              and (expected == 0 or chips == expected),
         "correctness": bool(ok),
-        "ring_attention_correct": True,  # vacuous below 2 chips, as in the reference
+        "ring_attention_correct": bool(ring_ok),
         "expected_chips": expected,
         "process_index": dist.get_rank(),
         "num_processes": chips,

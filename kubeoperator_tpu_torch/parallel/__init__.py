@@ -1,1 +1,2 @@
-"""Device registry, process-group bootstrap and the flat device mesh."""
+"""Device registry, process-group bootstrap, the flat device mesh and ring
+attention over it."""

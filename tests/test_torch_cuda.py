@@ -1,5 +1,5 @@
-"""Kernel K1 on the card against its plain version. Needs a CUDA card and
-nvcc; skips elsewhere. Imports neither JAX nor the JAX package, so it runs
+"""Kernels K1 and K2 on the card against their plain versions, and ring
+attention on the card. Needs a CUDA card and nvcc; skips elsewhere. Imports neither JAX nor the JAX package, so it runs
 on a machine without them:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from kubeoperator_tpu_torch.ops import dma_read as port
+from kubeoperator_tpu_torch.ops import ring_gather
 
 pytestmark = pytest.mark.cuda
 
@@ -49,3 +50,46 @@ def test_bandwidth_runs_through_the_kernel(dev):
     before = port.dma_read.launches
     r = port.dma_read_bandwidth_gbps(size_mb=16.0, iters=16)
     assert r.gbps > 0 and port.dma_read.launches > before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_ring_kernel_is_exact(dev, n, dtype):
+    x = torch.randn((64 * n, 1024), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(n)).to(dtype)
+    before = ring_gather.ring_all_gather.launches
+    out = ring_gather.ring_all_gather(x, ranks=n)
+    ref = ring_gather.ring_all_gather_reference(x.view(n, 64, 1024))
+    torch.cuda.synchronize()
+    assert ring_gather.ring_all_gather.launches == before + 1
+    assert torch.equal(out, x.expand(n, -1, -1))
+    assert torch.equal(out, ref)
+
+
+def test_ring_error_word_stays_clear_over_repeats(dev):
+    xs = [torch.randn((8 * 256, 1024), device=dev) for _ in range(2)]
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+    for i in range(50):
+        x = xs[i % 2]
+        bad += (ring_gather.ring_all_gather(x, ranks=8)
+                != x.expand(8, -1, -1)).sum()
+    assert int(bad.item()) == 0
+    ring_gather.raise_on_ring_error()  # raises if any wait timed out
+
+
+def test_ring_drivers_run_through_the_kernel(dev):
+    before = ring_gather.ring_all_gather.launches
+    assert ring_gather.verify_ring_all_gather(ranks=8, device=dev) is True
+    r = ring_gather.bench_ring_all_gather(size_mb=4.0, iters=4, ranks=4,
+                                          device=dev)
+    assert r.busbw_gbps > 0
+    assert ring_gather.ring_all_gather.launches > before
+
+
+def test_ring_attention_verifies_at_world_one(dev):
+    from kubeoperator_tpu_torch.ops import longcontext_check
+    from kubeoperator_tpu_torch.parallel.multislice import initialize_from_env
+
+    initialize_from_env()
+    assert longcontext_check.verify_ring_attention() is True
+    assert longcontext_check.verify_ring_attention(causal=False) is True

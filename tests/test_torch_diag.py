@@ -1,12 +1,11 @@
 """The port's `koctl tpu diag` against the JAX package's report: the same
 single-device keys, the same memory_health block, the same honesty
-guards."""
+guards, and the same multi-device branch."""
 
 import json
 import os
 from types import SimpleNamespace
 
-import pytest
 import torch.distributed as dist
 
 import kubeoperator_tpu.parallel.topology as jax_topology
@@ -94,10 +93,35 @@ def test_profile_dir_writes_a_trace(capsys, tmp_path):
 
 
 def test_two_ranks_run_the_suite_then_refuse_the_ring(monkeypatch, capsys):
+    # the multi-device branch used to refuse after the suite; it now runs
+    # the reference's five steps in its order and reports its key set
+    ref = _jax_report(monkeypatch, capsys)
     ran = []
+
+    def step(name, value):
+        def fn(**kw):
+            ran.append((name, kw))
+            return value
+        return fn
+
     monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
     monkeypatch.setattr(port_ops, "run_collective_suite",
-                        lambda **kw: ran.append(1) or [])
-    with pytest.raises(NotImplementedError, match="K2"):
-        port_koctl.main(PORT_ARGS)
-    assert ran == [1]
+                        step("collectives", []))
+    monkeypatch.setattr(port_ops, "verify_ring_all_gather",
+                        step("verify_ring_all_gather", True))
+    monkeypatch.setattr(port_ops, "bench_ring_all_gather",
+                        step("bench_ring_all_gather", _fake(busbw_gbps=1.0)))
+    monkeypatch.setattr(port_ops, "verify_ring_attention",
+                        step("verify_ring_attention", True))
+    monkeypatch.setattr(port_ops, "bench_ring_attention",
+                        step("bench_ring_attention", _fake(tflops=1.0)))
+    port = _port_report(capsys)
+    assert [name for name, _ in ran] == [
+        "collectives", "verify_ring_all_gather", "bench_ring_all_gather",
+        "verify_ring_attention", "bench_ring_attention"]
+    assert ran[-1][1] == {"seq_per_device": 256, "iters": 4}
+    assert port["devices"] == 2
+    assert set(port) - {"not_a_known_gpu"} == set(ref) - {"not_a_tpu"}
+    assert MULTI_DEVICE_KEYS <= set(port)
+    assert port["ring_all_gather_correct"] is True
+    assert port["ring_attention_correct"] is True

@@ -1,5 +1,5 @@
 """Import hygiene of the port: it never imports JAX or the JAX package,
-and its kernel sources are built for sm_90a."""
+and its kernel sources (K1, K2) are built for sm_90a."""
 
 import ast
 import os
@@ -55,3 +55,17 @@ def test_kernel_source_exists_and_builds_for_sm_90a():
     lib = _build.library_path("dma_read")
     assert lib.parent == ROOT / "build" / "kernels"
     assert "build/" in (ROOT / ".gitignore").read_text().split()
+
+
+def test_ring_kernel_source_exists_and_builds_for_sm_90a():
+    src = ROOT / "kubeoperator_tpu_torch" / "csrc" / "ring_all_gather.cu"
+    assert src.is_file()
+    assert _build.kernel_names() == ["dma_read", "ring_all_gather"]
+    cmd = _build.nvcc_command(src, Path("out.so"))
+    assert "arch=compute_90a,code=sm_90a" in cmd and str(src) in cmd
+    assert _build.library_path("ring_all_gather").parent == ROOT / "build" / "kernels"
+    text = src.read_text()
+    # co-resident by cooperative launch, bounded waits, system-scope flags
+    for needle in ("cudaLaunchCooperativeKernel", "%%globaltimer",
+                   "ld.acquire.sys", "st.release.sys"):
+        assert needle in text, needle

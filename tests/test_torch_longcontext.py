@@ -1,0 +1,167 @@
+"""The port's ring attention against the JAX package's, on the same numpy
+arrays: full reference attention, the ring at world size 1 in process, and
+the ring at 2 and 4 gloo ranks (one process each) against the JAX ring on
+a mesh of the same size."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import NamedSharding, PartitionSpec as P
+
+from kubeoperator_tpu.ops import longcontext_check as jax_check
+from kubeoperator_tpu.parallel import longcontext as jax_lc
+from kubeoperator_tpu.parallel.mesh import build_mesh
+from kubeoperator_tpu_torch.ops import longcontext_check as port_check
+from kubeoperator_tpu_torch.parallel import longcontext as port_lc
+from kubeoperator_tpu_torch.parallel.mesh import flat_axis_mesh
+from kubeoperator_tpu_torch.parallel.multislice import initialize_from_env
+
+from tests.test_torch_ops import spawn_ranks
+
+# f32 on both sides, same products in another summation order: a few ulp
+# of the O(1) outputs; the reference's own gate is 2e-4
+F32_TOL = 2e-5
+RING_TOL = 2e-4
+
+
+def _arrays(n: int, s_local: int = 8, seed: int = 0, b=2, h=4, dh=16):
+    rng = np.random.default_rng(seed)
+    shape = (b, s_local * n, h, dh)
+    return [rng.standard_normal(shape).astype(np.float32) for _ in range(3)]
+
+
+def _jax_ring(arrays, n: int, causal: bool, dtype=jnp.float32) -> np.ndarray:
+    mesh = build_mesh(("sp",), (n,), jax.devices()[:n])
+    spec = NamedSharding(mesh, P(None, "sp", None, None))
+    q, k, v = (jax.device_put(jnp.asarray(a).astype(dtype), spec)
+               for a in arrays)
+    out = jax_lc.ring_attention(q, k, v, mesh, axis_name="sp", causal=causal)
+    return np.asarray(jnp.asarray(out).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_reference_attention_matches_jax(causal):
+    arrays = _arrays(2)
+    want = np.asarray(jax_lc.reference_attention(
+        *(jnp.asarray(a) for a in arrays), causal=causal))
+    got = port_lc.reference_attention(
+        *(torch.from_numpy(a) for a in arrays), causal=causal)
+    np.testing.assert_allclose(got.numpy(), want, rtol=F32_TOL, atol=F32_TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_ring_at_world_one_matches_jax(causal):
+    initialize_from_env("cpu")
+    mesh = flat_axis_mesh("sp", device_type="cpu")
+    arrays = _arrays(1)
+    got = port_lc.ring_attention(*(torch.from_numpy(a) for a in arrays),
+                                 mesh, causal=causal)
+    np.testing.assert_allclose(got.numpy(), _jax_ring(arrays, 1, causal),
+                               rtol=F32_TOL, atol=F32_TOL)
+
+
+def test_bf16_ring_at_world_one_matches_jax():
+    # bf16 operands, f32 accumulation on both sides; the output rounds to
+    # bf16 (relative step 2^-8), so 1e-2 holds while a wrong block would not
+    initialize_from_env("cpu")
+    mesh = flat_axis_mesh("sp", device_type="cpu")
+    arrays = _arrays(1, s_local=64, seed=3)
+    got = port_lc.ring_attention(
+        *(torch.from_numpy(a).bfloat16() for a in arrays), mesh, causal=True)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               _jax_ring(arrays, 1, True, jnp.bfloat16),
+                               rtol=1e-2, atol=1e-2)
+
+
+def test_bf16_products_keep_f32_accumulation():
+    rng = np.random.default_rng(1)
+    a = torch.from_numpy(rng.standard_normal((1, 2, 8, 16)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((1, 2, 16, 8)).astype(np.float32))
+    got = port_lc._bmm_f32(a.bfloat16(), b.bfloat16())
+    assert got.dtype == torch.float32
+    # bf16 x bf16 products are exact in f32: only the summation order can
+    # differ from a float64 sum of the same products
+    want = torch.matmul(a.bfloat16().double(), b.bfloat16().double())
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6, atol=1e-6)
+
+
+def test_verify_and_bench_at_world_one():
+    initialize_from_env("cpu")
+    mesh = flat_axis_mesh("sp", device_type="cpu")
+    assert port_check.verify_ring_attention(mesh) is True
+    assert port_check.verify_ring_attention(mesh, causal=False) is True
+    r = port_check.bench_ring_attention(seq_per_device=32, iters=2, mesh=mesh)
+    assert [f.name for f in dataclasses.fields(r)] \
+        == [f.name for f in dataclasses.fields(jax_check.RingAttentionResult)]
+    d = r.to_dict()
+    assert d["seq_global"] == 32 and d["causal"] is True and d["tflops"] >= 0
+
+
+def test_verify_fails_on_a_wrong_mask(monkeypatch):
+    # the gate has teeth: a ring that drops its causal mask fails it
+    initialize_from_env("cpu")
+    mesh = flat_axis_mesh("sp", device_type="cpu")
+    real = port_check.ring_attention
+
+    def unmasked(q, k, v, mesh, axis_name="sp", causal=False):
+        return real(q, k, v, mesh, axis_name=axis_name, causal=False)
+
+    monkeypatch.setattr(port_check, "ring_attention", unmasked)
+    assert port_check.verify_ring_attention(mesh, causal=True) is False
+    assert port_check.verify_ring_attention(mesh, causal=False) is True
+
+
+# -------------------------------------------- 2 and 4 gloo ranks ----
+_RANK_SCRIPT = """
+import json, os, numpy as np, torch, torch.distributed as dist
+from kubeoperator_tpu_torch.ops import longcontext_check as lc
+from kubeoperator_tpu_torch.parallel.longcontext import ring_attention
+from kubeoperator_tpu_torch.parallel.mesh import flat_axis_mesh
+from kubeoperator_tpu_torch.parallel.multislice import initialize_from_env
+initialize_from_env("cpu")
+rank, n = dist.get_rank(), dist.get_world_size()
+mesh = flat_axis_mesh("sp")
+rng = np.random.default_rng(0)
+arrays = [rng.standard_normal((2, 8 * n, 4, 16)).astype(np.float32)
+          for _ in range(3)]
+q, k, v = (torch.from_numpy(np.ascontiguousarray(a[:, rank * 8:(rank + 1) * 8]))
+           for a in arrays)
+out = {"rank": rank, "n": n, "verify": lc.verify_ring_attention(mesh),
+       "verify_noncausal": lc.verify_ring_attention(mesh, causal=False),
+       "bench": lc.bench_ring_attention(seq_per_device=16, iters=2,
+                                        mesh=mesh).to_dict()}
+for causal in (False, True):
+    out[f"causal={causal}"] = ring_attention(q, k, v, mesh, causal=causal).tolist()
+dist.barrier()
+print("RANK_RESULT " + json.dumps(out), flush=True)
+os._exit(0)
+"""
+
+
+@pytest.fixture(scope="module", params=[2, 4], ids=lambda n: f"{n}ranks")
+def attention_ranks(request):
+    return spawn_ranks(request.param, _RANK_SCRIPT)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_ring_across_ranks_matches_jax(attention_ranks, causal):
+    n = len(attention_ranks)
+    want = _jax_ring(_arrays(n), n, causal)
+    got = np.concatenate([np.asarray(r[f"causal={causal}"], np.float32)
+                          for r in attention_ranks], axis=1)
+    np.testing.assert_allclose(got, want, rtol=RING_TOL, atol=RING_TOL)
+
+
+def test_verify_and_bench_across_ranks(attention_ranks):
+    n = len(attention_ranks)
+    for r in attention_ranks:
+        assert r["n"] == n
+        assert r["verify"] is True and r["verify_noncausal"] is True
+        b = r["bench"]
+        assert b["n_devices"] == n and b["seq_global"] == 16 * n
+        assert b["tflops"] >= 0 and b["time_per_iter_s"] > 0

@@ -1,7 +1,9 @@
 """Port of ops/ (matmul, triad, collectives) against the JAX package on the
 host: result keys, the triad chain's values, the bus factors, and the
 collectives at world size 1 (in process) and 2 (gloo ranks in separate
-processes, bootstrapped through the KO_TPU_* env contract)."""
+processes, bootstrapped through the KO_TPU_* env contract), with the Ready
+gate and `tpu diag` run for real at 2 ranks. `spawn_ranks` is the one
+spawn helper of the port's multi-rank tests."""
 
 import dataclasses
 import json
@@ -115,11 +117,18 @@ out = {{"rank": rank, "n": n, "psum_ok": c.verify_psum_correctness(mesh),
         "chains": {{op: c.run_chain(op, x, {steps}, mesh).tolist() for op in {ops}}},
         "bench": c.bench_collective("all_gather", size_mb=0.01, mesh=mesh,
                                     iters=2).to_dict()}}
-try:
-    psum_smoke.run_smoke(sizes_mb=(0.01,), iters=2, device="cpu")
-    out["smoke"] = "ran"
-except NotImplementedError as e:
-    out["smoke"] = "refused: " + str(e)
+out["smoke"] = psum_smoke.run_smoke(sizes_mb=(0.01,), iters=2, device="cpu")
+# the multi-device diag branch for real, its collective suite cut to size
+import contextlib, functools, io
+from kubeoperator_tpu_torch import ops
+from kubeoperator_tpu_torch.cli import koctl
+ops.run_collective_suite = functools.partial(ops.run_collective_suite,
+                                             sizes_mb=(0.01,), iters=2)
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    out["diag_rc"] = koctl.main(["tpu", "diag", "--cpu", "--size", "64",
+                                 "--iters", "2"])
+out["diag"] = json.loads(buf.getvalue())
 dist.barrier()
 print("RANK_RESULT " + json.dumps(out), flush=True)
 # skip teardown: gloo can abort a rank whose peer (or the store's host)
@@ -128,15 +137,14 @@ os._exit(0)
 """
 
 
-@pytest.fixture(scope="module")
-def gloo_ranks():
-    """Results of _RANK_SCRIPT from 2 gloo ranks, one process each, joined
-    through KO_TPU_COORDINATOR_ADDRESS/NUM_PROCESSES/PROCESS_ID."""
-    n = 2
+def spawn_ranks(n: int, script: str, timeout: float = 180) -> list[dict]:
+    """The RANK_RESULT dicts that `script` prints in n gloo ranks (n <= 4),
+    one process each, joined through KO_TPU_COORDINATOR_ADDRESS/
+    NUM_PROCESSES/PROCESS_ID; sorted by rank."""
+    assert n <= 4, "tier-1 gloo tests stay at 4 ranks or fewer"
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    script = _RANK_SCRIPT.format(shard=SHARD, steps=STEPS, ops=OPS)
     procs = []
     for rank in range(n):
         env = dict(os.environ, PYTHONPATH=ROOT,
@@ -149,7 +157,7 @@ def gloo_ranks():
     results = []
     try:
         for proc in procs:
-            out, err = proc.communicate(timeout=180)
+            out, err = proc.communicate(timeout=timeout)
             assert proc.returncode == 0, err[-2000:]
             line = [ln for ln in out.splitlines() if ln.startswith("RANK_RESULT ")]
             results.append(json.loads(line[0].split(" ", 1)[1]))
@@ -159,6 +167,12 @@ def gloo_ranks():
                 proc.kill()
                 proc.wait()
     return sorted(results, key=lambda r: r["rank"])
+
+
+@pytest.fixture(scope="module")
+def gloo_ranks():
+    """Results of _RANK_SCRIPT from 2 gloo ranks."""
+    return spawn_ranks(2, _RANK_SCRIPT.format(shard=SHARD, steps=STEPS, ops=OPS))
 
 
 def test_psum_correctness_at_two_ranks(gloo_ranks):
@@ -204,9 +218,63 @@ def test_chained_collectives_match_jax_mesh_bit_exact(gloo_ranks):
 
 
 def test_two_rank_bench_and_gate_refusal(gloo_ranks):
+    # the gate used to refuse at 2 ranks; it now runs the ring-attention
+    # check and passes
     for r in gloo_ranks:
         b = r["bench"]
         assert b["n_devices"] == 2
         assert b["busbw_gbps"] == pytest.approx(b["algbw_gbps"] * 1.0)
-        # the ring-attention check is not ported: the gate refuses, naming it
-        assert r["smoke"].startswith("refused: ") and "A3" in r["smoke"]
+        smoke = r["smoke"]
+        assert smoke["ok"] is True and smoke["chips"] == 2
+        assert smoke["correctness"] is True
+        assert smoke["ring_attention_correct"] is True
+
+
+@pytest.fixture(scope="module")
+def jax_smoke_line() -> str:
+    """The JAX gate's KO_TPU_SMOKE_RESULT line on the 8-device CPU mesh."""
+    from kubeoperator_tpu.adm.phases import SMOKE_MARKER
+    from kubeoperator_tpu.ops import psum_smoke as jax_smoke
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.delenv("KO_TPU_EXPECTED_CHIPS", raising=False)
+        mp.delenv("KO_TPU_TRAIN_STEPS", raising=False)
+        result = jax_smoke.run_smoke(sizes_mb=(0.01,), iters=2)
+    return SMOKE_MARKER + " " + json.dumps(result)
+
+
+@pytest.mark.parametrize("ctx_kw, verdict", [
+    ({}, "pass"),                                   # no plan: no chip count
+    ({"smoke_test_gbps_threshold": 1e9}, "fail: threshold"),
+    ({"tpu": True}, "fail: chip count"),            # v5e-16 plan wants 16
+])
+def test_two_rank_gate_line_gives_the_jax_verdict(gloo_ranks, jax_smoke_line,
+                                                  ctx_kw, verdict):
+    from kubeoperator_tpu.adm.phases import SMOKE_MARKER, parse_marker_json
+
+    from tests.test_torch_smoke import _verdict
+
+    port = SMOKE_MARKER + " " + json.dumps(gloo_ranks[0]["smoke"])
+    ref = jax_smoke_line
+    assert list(parse_marker_json(SMOKE_MARKER, [port])) \
+        == list(parse_marker_json(SMOKE_MARKER, [ref]))
+    assert _verdict(port, **ctx_kw) == _verdict(ref, **ctx_kw) == verdict
+
+
+def test_two_rank_diag_report_has_the_jax_key_set(gloo_ranks, monkeypatch,
+                                                   capsys):
+    from tests.test_torch_diag import MULTI_DEVICE_KEYS, _jax_report
+
+    ref = _jax_report(monkeypatch, capsys)
+    assert MULTI_DEVICE_KEYS <= set(ref)
+    for r in gloo_ranks:
+        diag = r["diag"]
+        assert r["diag_rc"] == 0 and diag["devices"] == 2
+        assert set(diag) - {"not_a_known_gpu"} == set(ref) - {"not_a_tpu"}
+        assert diag["ring_all_gather_correct"] is True
+        assert diag["ring_attention_correct"] is True
+        assert diag["pallas_ring"]["op"] == "pallas_ring_all_gather"
+        assert list(diag["ring_attention"]) == [
+            "n_devices", "seq_global", "heads", "head_dim", "causal",
+            "time_per_iter_s", "tflops"]
+        assert diag["ring_attention"]["seq_global"] == 512
