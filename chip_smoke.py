@@ -1,9 +1,14 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR ...]
 
 Run from the root of a checkout, on a machine with a CUDA card and nvcc.
+`--parent DIR` also times the kernels of another checkout (unpacked with
+`git archive`, say the parent commit) in a subprocess on the same card,
+before phase 4 and after phase 8, and prints its times beside the tree's
+(`parent_ms`: the first --parent's). It may be given more than once,
+and does not change what is checked.
 It builds the port's kernels from `kubeoperator_tpu_torch/csrc/`, holds
 each against its plain PyTorch version on the card, drives the port's
 node-validation path (`koctl tpu diag` at its defaults, then the Ready
@@ -14,16 +19,20 @@ shows that each path launched its kernels.
 Phases; any failure ends the run with a non-zero exit and no result line:
   1. card name and power limit (nvidia-smi), the registry entry
   2. kernel build (one nvcc per source, all started together)
-  3. K1 (dma_read) against its plain version at 256, 2048 and 62,464 rows
+  3. K1 (dma_read) against its plain version at 256, 2048 and 62,464 rows:
+     exact on ones, within tolerance on randn, bit-identical run to run
   4. K1 timing at 62,464 rows (256 MB): kernel, bound, plain, library
   5. `koctl tpu diag` in-process, with the launch counts set to 0 before
   6. `psum_smoke.main()` with KO_TPU_EXPECTED_CHIPS=1
   7. K2 (ring_all_gather, one card, n virtual ranks) against its plain
      version: n = 2, 4, 8 in f32 and bf16 at the verify shape (arange) and
-     the bench shape (3,904-row seeded randn shards), bit-exact; 200
-     back-to-back launches at n = 8; invalid inputs raise ValueError
+     the bench shape (3,904-row seeded randn shards) and a ragged-piece
+     shape (1,001-row shards: no block's range is a whole number of
+     pieces), bit-exact; 200 back-to-back launches at n = 8; invalid
+     inputs raise ValueError
   8. K2 timing at n = 4 and 8 with 16 MB shards: kernel, bound, plain,
-     library; busbw of `bench_ring_all_gather(ranks=8)` (HBM to HBM)
+     library, and the time of writing its output alone; busbw of
+     `bench_ring_all_gather(ranks=8)` (HBM to HBM)
   9. the multi-device path's entry points on one card, counts from 0:
      `verify_ring_all_gather(ranks=2, 4, 8)`, `bench_ring_all_gather
      (ranks=8)`, `verify_ring_attention()` causal and not,
@@ -61,6 +70,7 @@ RTOL, ATOL = 1e-5, 1e-3
 DIAG_SIZE_ROWS = (256, 2048, 62464)   # 62,464 rows = tpu diag's 256 MB
 RING_RANKS = (2, 4, 8)
 RING_SHARD_ROWS = 3904                # bench_ring_all_gather's 16 MB shard
+RING_RAGGED_ROWS = 1001               # 1,001-row shards: ragged pieces
 RING_REPEATS = 200                    # back-to-back launches at n = 8
 NVLINK_GBPS = 450.0                   # one NVLink direction (data sheet)
 
@@ -113,6 +123,8 @@ def check_ring(dev, rg) -> float:
                                        device=dev).view(8 * n, 1024),
                 "bench": torch.randn((RING_SHARD_ROWS * n, 1024), device=dev,
                                      generator=gen),
+                "ragged": torch.randn((RING_RAGGED_ROWS * n, 1024),
+                                      device=dev, generator=gen),
             }
             for what, x in shapes.items():
                 x = x.to(dtype)
@@ -125,9 +137,9 @@ def check_ring(dev, rg) -> float:
                 if not torch.equal(out, ref):
                     fail(f"K2 n={n} {dtype} {what}: differs from the plain version")
                 worst = max(worst, float((out.float() - ref.float()).abs().max()))
-            print(f"phase 7: K2 n={n} {str(dtype)[6:]} verify and bench shapes "
-                  "bit-exact against the input and the plain version",
-                  flush=True)
+            print(f"phase 7: K2 n={n} {str(dtype)[6:]} verify, bench and "
+                  "ragged-piece shapes bit-exact against the input and the "
+                  "plain version", flush=True)
     # back to back, two inputs in turn: a race, or a slot read before it
     # was written, leaves the other input's bytes behind
     n = RING_RANKS[-1]
@@ -165,9 +177,10 @@ def check_ring(dev, rg) -> float:
     return worst
 
 
-def time_ring(dev, rg, hbm_gbps: float) -> dict:
-    """Phase 8: K2 against its bound, its plain version and one broadcast
-    copy, per ring size, with 16 MB f32 shards."""
+def time_ring(dev, rg, hbm_gbps: float, parent: dict | None) -> dict:
+    """Phase 8: K2 against its bound, its plain version, one broadcast
+    copy and the writes of its output alone, per ring size, with 16 MB f32
+    shards."""
     import torch
 
     rows = {}
@@ -180,21 +193,28 @@ def time_ring(dev, rg, hbm_gbps: float) -> dict:
         plain_ms = event_ms(lambda: rg.ring_all_gather_reference(shards))
         library_ms = event_ms(
             lambda: out.copy_(x.unsqueeze(0).expand(n, -1, -1)))
+        # the output's writes alone: a floor under any form of the ring
+        write_ms = event_ms(lambda: out.fill_(0.0))
         rg.raise_on_ring_error()
         chunk_bytes = RING_SHARD_ROWS * 1024 * 4
         # least traffic: n outputs of n chunks written, each shard read once;
         # no arithmetic, so bytes bound it
         bound_ms = (n * n + n) * chunk_bytes / (hbm_gbps * 1e9) * 1e3
-        # the protocol's own traffic: own copy (1 read, 2 writes), then per
-        # step a push and a copy-out (2 reads, 2 writes)
-        protocol_ms = n * (3 + 4 * (n - 1)) * chunk_bytes / (hbm_gbps * 1e9) * 1e3
+        # the one-card protocol's own traffic: step 0 reads each shard and
+        # writes it twice (3n), each later step reads and writes one chunk
+        # per rank (2n a step, n-2 steps): n(2n - 1) chunks
+        protocol_ms = n * (2 * n - 1) * chunk_bytes / (hbm_gbps * 1e9) * 1e3
+        parent_ms = parent.get(f"ring_n{n}_ms") if parent else None
         rows[n] = dict(kernel_ms=kernel_ms, bound_ms=bound_ms,
                        protocol_bytes_ms=protocol_ms, plain_ms=plain_ms,
-                       library_ms=library_ms, chunk_bytes=chunk_bytes)
+                       library_ms=library_ms, chunk_bytes=chunk_bytes,
+                       parent_ms=parent_ms, output_write_ms=write_ms)
         print(f"phase 8: K2 n={n} 16 MB shards kernel_ms={kernel_ms:.4f} "
               f"bound_ms={bound_ms:.4f} (bytes) "
               f"protocol_bytes_ms={protocol_ms:.4f} plain_ms={plain_ms:.4f} "
-              f"library_ms={library_ms:.4f} (broadcast copy)", flush=True)
+              f"library_ms={library_ms:.4f} (broadcast copy) "
+              f"output_write_ms={write_ms:.4f}"
+              + (f" parent_ms={parent_ms}" if parent else ""), flush=True)
         del x, shards, out
     rg.ring_all_gather.launches = 0
     bench = rg.bench_ring_all_gather(ranks=8)
@@ -203,6 +223,49 @@ def time_ring(dev, rg, hbm_gbps: float) -> dict:
           f"{bench.busbw_gbps:.1f} GB/s (HBM-to-HBM on one card, not a link "
           f"figure) launches_per_call={per_call}", flush=True)
     return dict(times=rows, bench=bench.to_dict(), launches_per_bench=per_call)
+
+
+# run in a subprocess by --parent: another checkout's kernels, timed the
+# same way on the same card
+_PARENT_SCRIPT = """
+import importlib.util, json, sys
+import torch
+sys.path.insert(0, {parent!r})
+spec = importlib.util.spec_from_file_location("smoke_now", {smoke!r})
+now = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(now)
+from kubeoperator_tpu_torch.ops import _build, dma_read as d, ring_gather as rg
+assert str(_build.CSRC).startswith({parent!r}), _build.CSRC
+_build.build()
+dev = torch.device("cuda", 0)
+x = torch.randn(({k1_rows}, 1024), device=dev,
+                generator=torch.Generator(device=dev).manual_seed(0))
+seed = torch.tensor([1.0], device=dev)
+res = dict(dma_read_ms=now.event_ms(lambda: d.dma_read(x, seed)))
+del x
+for n in (4, 8):
+    x = torch.randn(({k2_rows} * n, 1024), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(n))
+    res[f"ring_n{{n}}_ms"] = now.event_ms(lambda: rg.ring_all_gather(x, ranks=n))
+    rg.raise_on_ring_error()
+    del x
+print("PARENT_RESULT " + json.dumps(res), flush=True)
+"""
+
+
+def time_parent(parent_dir: str) -> dict:
+    """Times of the kernels of the checkout at `parent_dir`, in a subprocess
+    on the same card."""
+    script = _PARENT_SCRIPT.format(
+        parent=str(Path(parent_dir).resolve()), smoke=str(ROOT / "chip_smoke.py"),
+        k1_rows=DIAG_SIZE_ROWS[-1], k2_rows=RING_SHARD_ROWS)
+    proc = subprocess.run([sys.executable, "-c", script], cwd=parent_dir,
+                          capture_output=True, text=True, timeout=300)
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("PARENT_RESULT ")]
+    if proc.returncode != 0 or not lines:
+        fail(f"--parent run exit {proc.returncode}: {proc.stderr[-2000:]}")
+    return json.loads(lines[0].split(" ", 1)[1])
 
 
 # run by each process of phase 10: tpu diag and the gate at 2 chips
@@ -314,7 +377,13 @@ def multi_card(torch) -> dict | None:
     return multi
 
 
-def main() -> int:
+def main(argv: list[str] | None = None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", metavar="DIR", action="append", default=[],
+                    help="also time the kernels of the checkout in DIR")
+    args = ap.parse_args(argv)
     t_start = time.perf_counter()
     import torch
 
@@ -355,7 +424,8 @@ def main() -> int:
         log = _build.build_log(name)
         print("\n".join(line for line in log.splitlines()
                         if "registers" in line or "smem" in line
-                        or "spill" in line), flush=True)
+                        or "spill" in line or "entry function" in line),
+              flush=True)
     record["build_s"] = seconds
 
     # 3. K1 against its plain version
@@ -376,15 +446,19 @@ def main() -> int:
         ref = dma_read_reference(x, seed)
         exact = dma_read_reference(x.double(), seed.double())
         torch.cuda.synchronize()
+        again = [dma_read(x, seed) for _ in range(3)]
+        torch.cuda.synchronize()
         err = float((out - ref).abs().max())
         err64 = float((out.double() - exact).abs().max())
         ref_err64 = float((ref.double() - exact).abs().max())
         if not torch.allclose(out, ref, rtol=RTOL, atol=ATOL):
             fail(f"K1 at {rows} rows: max |kernel - plain| = {err}")
+        if not all(torch.equal(out, a) for a in again):
+            fail(f"K1 at {rows} rows: not bit-identical from run to run")
         max_abs_err = max(max_abs_err, err)
         print(f"phase 3: rows={rows} ones exact; randn max|k-plain|={err:.3g} "
               f"max|k-f64|={err64:.3g} max|plain-f64|={ref_err64:.3g} "
-              f"(rtol={RTOL}, atol={ATOL})", flush=True)
+              f"(rtol={RTOL}, atol={ATOL}); 4 runs bit-identical", flush=True)
         del ones, x
     base = torch.ones((256, 1024), device=dev)
     seed = torch.tensor([0.0], device=dev)
@@ -407,7 +481,11 @@ def main() -> int:
     print(f"phase 3: {len(invalid)} invalid inputs raise ValueError",
           flush=True)
 
-    # 4. K1 timing at the diag's size
+    # 4. K1 timing at the diag's size (the other checkout's first, if asked)
+    parents = {d: [time_parent(d)] for d in args.parent}
+    for d, times in parents.items():
+        print(f"phase 4: --parent {d}: {times[0]}", flush=True)
+    first = parents[args.parent[0]][0] if args.parent else None
     rows = DIAG_SIZE_ROWS[-1]
     x = torch.randn((rows, 1024), device=dev,
                     generator=torch.Generator(device=dev).manual_seed(0))
@@ -424,12 +502,13 @@ def main() -> int:
     dma_read.launches = 0
     bw = dma_mod.dma_read_bandwidth_gbps()
     per_call = dma_read.launches
+    parent_k1 = first["dma_read_ms"] if first else None
     print(f"phase 4: K1 rows={rows} kernel_ms={kernel_ms:.4f} "
           f"bound_ms={bound_ms:.4f} ({bound_by}) plain_ms={plain_ms:.4f} "
           f"library_ms={library_ms:.4f} "
           f"kernel_gbps={rows * 4096 / kernel_ms / 1e6:.1f} "
-          f"bandwidth_call={bw.to_dict()} launches_per_call={per_call}",
-          flush=True)
+          f"bandwidth_call={bw.to_dict()} launches_per_call={per_call}"
+          + (f" parent_ms={parent_k1}" if first else ""), flush=True)
     del x
 
     # 5. the main path: tpu diag at its defaults, counts from 0
@@ -464,7 +543,10 @@ def main() -> int:
 
     # 7-8. K2 against its plain version, then its times
     ring_err = check_ring(dev, rg)
-    ring_times = time_ring(dev, rg, gen.hbm_gbps_per_chip)
+    ring_times = time_ring(dev, rg, gen.hbm_gbps_per_chip, first)
+    for d, times in parents.items():  # parent, tree, parent
+        times.append(time_parent(d))
+        print(f"phase 8: --parent {d} again: {times[1]}", flush=True)
 
     # 9. the multi-device path's entry points on one card, counts from 0
     ring_all_gather = rg.ring_all_gather
@@ -519,6 +601,7 @@ def main() -> int:
         "library_ms": n8["library_ms"], "host_forms": forms,
     }]}
     record.update(kernels=kernels, diag=report, smoke=smoke,
+                  parent_ms=parents,
                   launches_per_bandwidth_call=per_call,
                   bandwidth_call=bw.to_dict(), ring=ring_times,
                   multi_device_path=path, multi_card=multi,

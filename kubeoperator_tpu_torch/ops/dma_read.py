@@ -25,7 +25,9 @@ from kubeoperator_tpu_torch.utils.device import resolve_device
 COLS = 1024        # row width of the reference's layout
 CHUNK_ROWS = 256   # the reference's chunk: rows must be a multiple of it
 TILE_ROWS = 8      # the kernel's tile, and the output's row count
-BLOCKS_PER_SM = 2  # pass-1 blocks per SM (64 KiB of shared memory each)
+BLOCKS_PER_SM = 1  # persistent grid: one block per SM
+FINISHERS = 64     # blocks that sum the partials, one column slice each
+TIMEOUT_S = 10.0   # a finisher waiting longer writes NaN instead of hanging
 
 
 def dma_read_reference(x: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
@@ -53,14 +55,56 @@ def _check(x: torch.Tensor, seed: torch.Tensor) -> None:
         raise ValueError("x must be 16-byte aligned (the kernel copies 16 B)")
 
 
+def tile_plan(tiles: int, nblocks: int) -> list[range]:
+    """Each block's 8-row tiles, in the order the kernel streams them: dealt
+    round-robin, block b taking b, b + nblocks, ... (counts differ by at
+    most one)."""
+    if not 1 <= nblocks <= tiles:
+        raise ValueError(f"need 1 <= nblocks <= tiles, got {nblocks}, {tiles}")
+    return [range(b, tiles, nblocks) for b in range(nblocks)]
+
+
+def finisher_count(nblocks: int) -> int:
+    """Blocks that finish: the largest power of two <= min(nblocks,
+    FINISHERS), so the 8192 outputs split into equal column slices."""
+    cap = min(nblocks, FINISHERS)
+    return 1 << (cap.bit_length() - 1)
+
+
 @functools.cache
 def _kernel():
     fn = _build.load("dma_read").ko_dma_read
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@dataclass(eq=False)
+class _Scratch:
+    """One stream's scratch, made once: the block partials and the ticket
+    counters (u32 [2]), which the kernel leaves zero for its next launch.
+    Launches on one stream run one after another, so they share it; two
+    streams may run launches at once, so each has its own."""
+    sms: int
+    counters: torch.Tensor
+    partials: dict[int, torch.Tensor]
+
+
+_scratch: dict[tuple[torch.device, int], _Scratch] = {}
+
+
+def _stream_scratch(device: torch.device, stream: torch.cuda.Stream) -> _Scratch:
+    key = (device, stream.cuda_stream)
+    sc = _scratch.get(key)
+    if sc is None:
+        sc = _scratch[key] = _Scratch(
+            sms=torch.cuda.get_device_properties(device).multi_processor_count,
+            counters=torch.zeros(2, dtype=torch.int32, device=device),
+            partials={})
+    return sc
 
 
 def dma_read(x: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
@@ -71,15 +115,19 @@ def dma_read(x: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
         return dma_read_reference(x, seed)
     fn = _kernel()
     tiles = x.shape[0] // TILE_ROWS
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    nblocks = min(tiles, sms * BLOCKS_PER_SM)
-    partials = torch.empty((nblocks, TILE_ROWS, COLS), dtype=torch.float32,
-                           device=x.device)
+    stream = torch.cuda.current_stream(x.device)
+    sc = _stream_scratch(x.device, stream)
+    nblocks = min(tiles, sc.sms * BLOCKS_PER_SM)
+    partials = sc.partials.get(nblocks)
+    if partials is None:
+        partials = sc.partials[nblocks] = torch.empty(
+            (nblocks, TILE_ROWS, COLS), dtype=torch.float32, device=x.device)
     out = torch.empty((TILE_ROWS, COLS), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), x.shape[0], seed.data_ptr(),
-                 partials.data_ptr(), nblocks, out.data_ptr(),
-                 torch.cuda.current_stream(x.device).cuda_stream)
+                 partials.data_ptr(), nblocks, finisher_count(nblocks),
+                 sc.counters.data_ptr(), out.data_ptr(),
+                 int(TIMEOUT_S * 1e9), stream.cuda_stream)
     if err:
         raise RuntimeError(f"dma_read kernel launch failed: CUDA error {err}")
     dma_read.launches += 1
@@ -104,7 +152,7 @@ def dma_read_bandwidth_gbps(
     device: torch.device | str | None = None,
 ) -> DmaReadResult:
     """Sustained device-memory read bandwidth through the explicit
-    double-buffered copy kernel."""
+    bulk-copy stream kernel."""
     dev = resolve_device(device)
     if dev.type != "cuda":
         size_mb = min(size_mb, 1.0)  # host runs are for tests

@@ -9,16 +9,20 @@ kernel is hand-written CUDA C++ for sm_90a in `csrc/ring_all_gather.cu`
 Two host forms drive the one kernel body:
 
   one card, n virtual ranks   `ring_all_gather(x, ranks=n)`: one launch
-                              holds all n ranks, each with its own shard,
-                              output and comm slots on the card; they
-                              exchange through the same push-and-flag
-                              protocol they use across cards. Returns every
-                              rank's output, [n, rows, 1024].
+                              holds all n ranks, each with its own shard
+                              and output on the card; a rank pushes each
+                              piece straight into its right neighbour's
+                              output. Returns every rank's output,
+                              [n, rows, 1024].
   one process per card        `ring_all_gather(x, mesh)`: each process
-                              launches its own rank; the peers' comm slots
-                              and flags come from
+                              launches its own rank and pushes into its
+                              right neighbour's 2-slot landing buffer; the
+                              peers' slots and counters come from
                               `torch.distributed._symmetric_memory`.
                               Returns this rank's output, [rows, 1024].
+
+Both split each block's range of a chunk into pieces (`piece_plan`, which
+the kernel computes the same way) and signal after every piece.
 
 A CUDA tensor launches the kernel or raises; only a tensor on the host
 takes the plain version (the one-card form) or the same slot order over
@@ -52,37 +56,57 @@ from kubeoperator_tpu_torch.utils.device import resolve_device
 COLS = 1024          # row width of the reference's layout
 MAX_RANKS = 8        # ranks one launch's pointer table holds
 VEC_BYTES = 16       # the kernel copies 16-byte vectors
-PTRS_PER_RANK = 10   # RankTable in csrc/ring_all_gather.cu
+PTRS_PER_RANK = 8    # RankTable in csrc/ring_all_gather.cu
 FLAG_BYTES = 8       # one u64 counter per (rank, block)
+PIECE_VEC = 2048     # 32 KB: a block signals after each piece this size
 TIMEOUT_S = 10.0     # a wait longer than this is a protocol fault
 
 
 def step_slots(rank: int, i: int, n: int) -> tuple[int, int, int]:
-    """(send slot, receive slot, source rank) of step i at `rank`: the
-    chunk in slot i % 2 goes right, the left neighbour's lands in slot
+    """(send slot, receive slot, source rank) of step i at `rank` in the
+    process form: the chunk held in slot i % 2 (the own shard, read from
+    `local`, at step 0) goes right, the left neighbour's lands in slot
     (i + 1) % 2 and belongs at out[src * chunk]."""
     return i % 2, (i + 1) % 2, (rank - i - 1) % n
 
 
+def pieces_per_block(chunk_vec: int, blocks: int,
+                     piece_vec: int = PIECE_VEC) -> int:
+    """Pieces of every block's range: enough that the widest range's pieces
+    hold at most `piece_vec` vectors (at least one)."""
+    widest = -(-chunk_vec // blocks)
+    return max(1, -(-widest // piece_vec))
+
+
+def piece_plan(chunk_vec: int, blocks: int,
+               piece_vec: int = PIECE_VEC) -> list[list[tuple[int, int]]]:
+    """Each block's pieces as vector ranges [lo, hi) of a chunk, computed
+    as the kernel computes them: block b owns [chunk_vec * b // blocks,
+    chunk_vec * (b + 1) // blocks), split evenly into `pieces_per_block`
+    pieces (some empty when the range is shorter than that)."""
+    pieces = pieces_per_block(chunk_vec, blocks, piece_vec)
+    plan = []
+    for b in range(blocks):
+        lo = chunk_vec * b // blocks
+        length = chunk_vec * (b + 1) // blocks - lo
+        plan.append([(lo + length * p // pieces, lo + length * (p + 1) // pieces)
+                     for p in range(pieces)])
+    return plan
+
+
 def ring_all_gather_reference(shards: torch.Tensor) -> torch.Tensor:
     """Plain version of the one-card form: every rank's output [n, n * chunk,
-    COLS] from shards [n, chunk, COLS], by stepping the ring in lockstep with
-    the kernel's slots and source indices."""
+    COLS] from shards [n, chunk, COLS], by stepping the ring with the
+    kernel's pushes: at step i rank r writes the chunk it holds, (r - i)
+    mod n, into its right neighbour's output."""
     n, chunk = shards.shape[0], shards.shape[1]
-    out = shards.new_empty((n, n * chunk) + tuple(shards.shape[2:]))
-    comm = shards.new_empty((n, 2) + tuple(shards.shape[1:]))
-    for r in range(n):
-        out[r, r * chunk:(r + 1) * chunk] = shards[r]
-    comm[:, 0] = shards
+    out = shards.new_empty((n, n, chunk) + tuple(shards.shape[2:]))
+    ranks = torch.arange(n)
+    out[ranks, ranks] = shards
     for i in range(n - 1):
-        send, recv, _ = step_slots(0, i, n)
-        # every rank pushes its send slot into its right neighbour's
-        # receive slot: rank r receives rank r-1's
-        comm[:, recv] = torch.roll(comm[:, send], 1, dims=0)
-        for r in range(n):
-            src = step_slots(r, i, n)[2]
-            out[r, src * chunk:(src + 1) * chunk] = comm[r, recv]
-    return out
+        held = (ranks - i) % n
+        out[(ranks + 1) % n, held] = out[ranks, held]
+    return out.view((n, n * chunk) + tuple(shards.shape[2:]))
 
 
 def _check(x: torch.Tensor, n: int) -> int:
@@ -113,56 +137,57 @@ def _lib():
     lib = _build.load("ring_all_gather")
     lib.ko_ring_all_gather.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_ulonglong, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_ulonglong,
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
     lib.ko_ring_all_gather.restype = ctypes.c_int
     lib.ko_ring_max_coresident_blocks.argtypes = [
-        ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     lib.ko_ring_max_coresident_blocks.restype = ctypes.c_int
     return lib
 
 
 @functools.cache
-def _max_coresident_blocks(device_index: int) -> int:
+def _max_coresident_blocks(device_index: int, cross_card: bool) -> int:
     out = ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        err = _lib().ko_ring_max_coresident_blocks(device_index,
-                                                    ctypes.byref(out))
+        err = _lib().ko_ring_max_coresident_blocks(
+            device_index, int(cross_card), ctypes.byref(out))
     if err:
         raise RuntimeError(f"ring_all_gather occupancy query: CUDA error {err}")
     return out.value
 
 
 def _blocks_per_rank(device: torch.device, ranks_in_launch: int,
-                     chunk_vec: int) -> int:
+                     chunk_vec: int, cross_card: bool) -> int:
     """B: the co-resident grid split evenly over the launch's ranks, and no
     more blocks than a chunk has vectors."""
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
-    share = _max_coresident_blocks(index) // ranks_in_launch
+    share = _max_coresident_blocks(index, cross_card) // ranks_in_launch
     return max(1, min(share, chunk_vec))
 
 
 @dataclass(eq=False)
 class _Flags:
-    """Flag counters, error word and launch epoch of one set of ranks. The
+    """Counters, error word and counter base of one set of ranks. The
     counters only grow, so a set is reused across launches as it is.
 
-    One card: `memory` is int64 [2, n, B], receive then ready flags. One
-    process per card: `memory` is this rank's symmetric buffer
-    [comm0 | comm1 | recv[B] | ready[B]], `peers` every rank's address of
+    One card: `memory` is int64 [n, B], the receive counters. One process
+    per card: `memory` is this rank's symmetric buffer
+    [slot0 | slot1 | recv[B] | ready[B]], `peers` every rank's address of
     it and `handle` the rendezvous that maps them."""
-    err: torch.Tensor           # int32 [1], 0 while the protocol is healthy
+    err: torch.Tensor           # int64 [1], 0 while the protocol is healthy
     blocks: int
     memory: torch.Tensor
     peers: list[int] | None = None
     handle: object = None
-    epoch: int = 0
+    base: int = 0
 
-    def next_launch(self, n: int) -> tuple[int, int]:
-        """(base, wait_prev) of the next launch."""
-        self.epoch += 1
-        return self.epoch * n, int(self.epoch > 1)
+    def next_launch(self, events: int) -> int:
+        """The next launch's counter base; the launch signals `events`
+        (pieces x n) counter values per block above it."""
+        base, self.base = self.base, self.base + events
+        return base
 
 
 # Flag sets by (form, ..., B), kept for the life of the process: the
@@ -177,24 +202,30 @@ def raise_on_ring_error() -> None:
         code = int(ws.err.item())
         if code:
             del _workspaces[key]
-            # (rank + 1) << 16 | (step + 1) << 4 | kind, as the kernel writes it
-            rank, step = (code >> 16) - 1, ((code >> 4) & 0xFFF) - 1
-            kind = code & 0xF
-            what = {1: "the right neighbour's ready flag",
-                    2: "this rank's receive flag"}.get(kind, f"kind {kind}")
+            # (piece + 1) << 32 | (rank + 1) << 16 | (step + 1) << 8 | kind,
+            # as the kernel writes it
+            piece, rank = (code >> 32) - 1, ((code >> 16) & 0xFFFF) - 1
+            step, kind = ((code >> 8) & 0xFF) - 1, code & 0xFF
+            what = {1: "its ready counter (the right neighbour reading a slot)",
+                    2: "its receive counter (the left neighbour's push)",
+                    3: "the right neighbour finishing the previous launch",
+                    }.get(kind, f"kind {kind}")
             raise RuntimeError(
                 f"ring_all_gather: rank {rank} waited more than {TIMEOUT_S:g} s "
-                f"on {what} at step {step} (error word {code:#x})")
+                f"on {what} at step {step}, piece {piece} "
+                f"(error word {code:#x})")
 
 
 def _launch(ptrs: list[int], nlocal: int, n: int, first_rank: int,
-            chunk_vec: int, ws: _Flags, device: torch.device) -> None:
-    base, wait_prev = ws.next_launch(n)
+            chunk_vec: int, ws: _Flags, device: torch.device,
+            cross_card: bool) -> None:
+    pieces = pieces_per_block(chunk_vec, ws.blocks, PIECE_VEC)
+    base = ws.next_launch(pieces * n)
     table = (ctypes.c_void_p * len(ptrs))(*ptrs)
     with torch.cuda.device(device):
         err = _lib().ko_ring_all_gather(
-            table, nlocal, n, first_rank, ws.blocks, chunk_vec, base,
-            wait_prev, int(TIMEOUT_S * 1e9), ws.err.data_ptr(),
+            table, nlocal, n, first_rank, ws.blocks, chunk_vec, pieces, base,
+            int(cross_card), int(TIMEOUT_S * 1e9), ws.err.data_ptr(),
             torch.cuda.current_stream(device).cuda_stream)
     if err:
         raise RuntimeError(f"ring_all_gather kernel launch failed: CUDA error {err}")
@@ -207,30 +238,29 @@ def _one_card_kernel(shards: torch.Tensor) -> torch.Tensor:
     n, chunk = shards.shape[0], shards.shape[1]
     dev = shards.device
     chunk_vec = chunk * COLS * shards.element_size() // VEC_BYTES
-    blocks = _blocks_per_rank(dev, n, chunk_vec)
+    blocks = _blocks_per_rank(dev, n, chunk_vec, cross_card=False)
     key = ("card", dev, n, blocks)
     ws = _workspaces.get(key)
     if ws is None:
         ws = _workspaces[key] = _Flags(
-            err=torch.zeros(1, dtype=torch.int32, device=dev), blocks=blocks,
-            memory=torch.zeros((2, n, blocks), dtype=torch.int64, device=dev))
-    recv, ready = ws.memory[0], ws.memory[1]
+            err=torch.zeros(1, dtype=torch.int64, device=dev), blocks=blocks,
+            memory=torch.zeros((n, blocks), dtype=torch.int64, device=dev))
+    recv = ws.memory
     out = shards.new_empty((n, n * chunk, COLS))
-    comm = shards.new_empty((n, 2, chunk, COLS))
     ptrs = []
     for r in range(n):
-        right, left = (r + 1) % n, (r - 1) % n
-        ptrs += [shards[r].data_ptr(), out[r].data_ptr(),
-                 comm[r, 0].data_ptr(), comm[r, 1].data_ptr(),
-                 comm[right, 0].data_ptr(), comm[right, 1].data_ptr(),
-                 recv[r].data_ptr(), recv[right].data_ptr(),
-                 ready[r].data_ptr(), ready[left].data_ptr()]
-    _launch(ptrs, n, n, 0, chunk_vec, ws, dev)
+        right = (r + 1) % n
+        # a rank reads what it forwards from its own output and lands its
+        # pushes in its right neighbour's; no ready counters
+        ptrs += [shards[r].data_ptr(), out[r].data_ptr(), out[r].data_ptr(),
+                 out[right].data_ptr(), recv[r].data_ptr(),
+                 recv[right].data_ptr(), 0, 0]
+    _launch(ptrs, n, n, 0, chunk_vec, ws, dev, cross_card=False)
     return out
 
 
 def _peer_flags(group, dev: torch.device, chunk_bytes: int) -> _Flags:
-    """This rank's symmetric buffer [comm0 | comm1 | recv[B] | ready[B]],
+    """This rank's symmetric buffer [slot0 | slot1 | recv[B] | ready[B]],
     mapped on every rank of `group`, with its peers' addresses."""
     import torch.distributed._symmetric_memory as symm_mem
 
@@ -239,8 +269,9 @@ def _peer_flags(group, dev: torch.device, chunk_bytes: int) -> _Flags:
     if ws is not None:
         return ws
     # every rank must agree on B: the flags are per (rank, block)
-    blocks = torch.tensor([_blocks_per_rank(dev, 1, chunk_bytes // VEC_BYTES)],
-                          dtype=torch.int64, device=dev)
+    blocks = torch.tensor(
+        [_blocks_per_rank(dev, 1, chunk_bytes // VEC_BYTES, cross_card=True)],
+        dtype=torch.int64, device=dev)
     dist.all_reduce(blocks, op=dist.ReduceOp.MIN, group=group)
     blocks = int(blocks.item())
     if not symm_mem.is_symm_mem_enabled_for_group(group.group_name):
@@ -254,7 +285,7 @@ def _peer_flags(group, dev: torch.device, chunk_bytes: int) -> _Flags:
     torch.cuda.synchronize(dev)
     dist.barrier(group=group)  # every rank's flags are zero before any signal
     ws = _workspaces[key] = _Flags(
-        err=torch.zeros(1, dtype=torch.int32, device=dev), blocks=blocks,
+        err=torch.zeros(1, dtype=torch.int64, device=dev), blocks=blocks,
         memory=buf, peers=list(handle.buffer_ptrs), handle=handle)
     return ws
 
@@ -272,35 +303,34 @@ def _process_kernel(local: torch.Tensor, group) -> torch.Tensor:
     flags = 2 * chunk_bytes
     ready = flags + ws.blocks * FLAG_BYTES
     out = local.new_empty((n * chunk, COLS))
-    ptrs = [local.data_ptr(), out.data_ptr(),
-            peers[rank], peers[rank] + chunk_bytes,
-            peers[right], peers[right] + chunk_bytes,
+    ptrs = [local.data_ptr(), out.data_ptr(), peers[rank], peers[right],
             peers[rank] + flags, peers[right] + flags,
             peers[rank] + ready, peers[left] + ready]
-    _launch(ptrs, 1, n, rank, chunk_bytes // VEC_BYTES, ws, local.device)
+    _launch(ptrs, 1, n, rank, chunk_bytes // VEC_BYTES, ws, local.device,
+            cross_card=True)
     return out
 
 
 def _process_p2p(local: torch.Tensor, group) -> torch.Tensor:
-    """The process form on host tensors: the kernel's slot order over
+    """The process form on host tensors: the kernel's pushes and slots over
     isend/irecv, one step at a time."""
     n = dist.get_world_size(group)
     rank = dist.get_rank(group)
     chunk = local.shape[0]
     out = local.new_empty((n * chunk, COLS))
-    comm = local.new_empty((2, chunk, COLS))
+    slots = local.new_empty((2, chunk, COLS))
     out[rank * chunk:(rank + 1) * chunk] = local
-    comm[0] = local
     right = dist.get_global_rank(group, (rank + 1) % n)
     left = dist.get_global_rank(group, (rank - 1) % n)
     for i in range(n - 1):
         send, recv, src = step_slots(rank, i, n)
+        held = local if i == 0 else slots[send]
         for work in dist.batch_isend_irecv([
-            dist.P2POp(dist.isend, comm[send], right, group=group),
-            dist.P2POp(dist.irecv, comm[recv], left, group=group),
+            dist.P2POp(dist.isend, held, right, group=group),
+            dist.P2POp(dist.irecv, slots[recv], left, group=group),
         ]):
             work.wait()
-        out[src * chunk:(src + 1) * chunk] = comm[recv]
+        out[src * chunk:(src + 1) * chunk] = slots[recv]
     return out
 
 

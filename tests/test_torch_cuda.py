@@ -46,6 +46,42 @@ def test_kernel_matches_plain_version(dev, rows):
     assert torch.equal(out, port.dma_read(x, seed))
 
 
+def test_kernel_is_bit_identical_and_resets_its_tickets(dev):
+    # the finish runs inside the launch: 100 launches give the same bits,
+    # and the last finisher of each leaves the ticket counters at zero
+    x = torch.randn((62464, 1024), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(5))
+    seed = torch.tensor([0.25], device=dev)
+    first = port.dma_read(x, seed)
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+    for _ in range(100):
+        bad += (port.dma_read(x, seed) != first).sum()
+    torch.cuda.synchronize()
+    assert int(bad.item()) == 0
+    scratch = port._stream_scratch(x.device, torch.cuda.current_stream(dev))
+    assert scratch.counters.tolist() == [0, 0]
+
+
+def test_kernel_on_two_streams_keeps_a_scratch_each(dev):
+    # launches on two streams may overlap; each stream has its own
+    # partials and ticket counters, so neither mixes the other's tickets
+    x = torch.randn((62464, 1024), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(6))
+    seed = torch.tensor([0.75], device=dev)
+    want = port.dma_read(x, seed)
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    bad = [torch.zeros((), dtype=torch.int64, device=dev) for _ in streams]
+    torch.cuda.synchronize()
+    for _ in range(50):
+        for s, b in zip(streams, bad):
+            with torch.cuda.stream(s):
+                b += (port.dma_read(x, seed) != want).sum()
+    torch.cuda.synchronize()
+    assert [int(b.item()) for b in bad] == [0, 0]
+    a, b = (port._stream_scratch(x.device, s) for s in streams)
+    assert a is not b and a.counters.tolist() == b.counters.tolist() == [0, 0]
+
+
 def test_bandwidth_runs_through_the_kernel(dev):
     before = port.dma_read.launches
     r = port.dma_read_bandwidth_gbps(size_mb=16.0, iters=16)
@@ -64,6 +100,21 @@ def test_ring_kernel_is_exact(dev, n, dtype):
     assert ring_gather.ring_all_gather.launches == before + 1
     assert torch.equal(out, x.expand(n, -1, -1))
     assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_ring_kernel_is_exact_on_ragged_pieces(dev, n, dtype):
+    # 1,001-row shards: no block's range is a whole number of pieces
+    rows = 1001
+    x = torch.randn((rows * n, 1024), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(n)).to(dtype)
+    out = ring_gather.ring_all_gather(x, ranks=n)
+    ref = ring_gather.ring_all_gather_reference(x.view(n, rows, 1024))
+    torch.cuda.synchronize()
+    assert torch.equal(out, x.expand(n, -1, -1))
+    assert torch.equal(out, ref)
+    ring_gather.raise_on_ring_error()
 
 
 def test_ring_error_word_stays_clear_over_repeats(dev):

@@ -78,6 +78,45 @@ def test_invalid_inputs_raise_value_error(case):
         port.dma_read(x, seed)
 
 
+@pytest.mark.parametrize("rows, nblocks", [
+    (256, 32),      # 32 tiles: the grid is capped at one block a tile
+    (2048, 132),
+    (62464, 132),   # tpu diag's 256 MB: 7,808 tiles, 59 or 60 a block
+    (62464, 264),
+    (62464, 7808),
+])
+def test_tile_plan_covers_each_tile_once_in_even_shares(rows, nblocks):
+    tiles = rows // port.TILE_ROWS
+    plan = port.tile_plan(tiles, nblocks)
+    assert len(plan) == nblocks <= tiles
+    covered = np.zeros(tiles, np.int64)
+    for b, mine in enumerate(plan):
+        # round-robin: block b streams b, b + nblocks, ... in order
+        assert list(mine) == list(range(b, tiles, nblocks)) and len(mine) > 0
+        covered[list(mine)] += 1
+    np.testing.assert_array_equal(covered, 1)
+    counts = {len(mine) for mine in plan}
+    assert max(counts) - min(counts) <= 1  # even
+    # at any step k the grid reads one window of neighbouring tiles
+    for k in range(min(len(mine) for mine in plan)):
+        window = [mine[k] for mine in plan]
+        assert window == list(range(k * nblocks, (k + 1) * nblocks))
+
+
+def test_tile_plan_refuses_more_blocks_than_tiles():
+    with pytest.raises(ValueError):
+        port.tile_plan(32, 33)
+    with pytest.raises(ValueError):
+        port.tile_plan(32, 0)
+
+
+@pytest.mark.parametrize("nblocks, want", [(1, 1), (3, 2), (32, 32),
+                                           (132, 64), (264, 64)])
+def test_finishers_split_the_output_evenly(nblocks, want):
+    f = port.finisher_count(nblocks)
+    assert f == want and f <= nblocks and (8 * 1024) % f == 0
+
+
 def test_host_tensors_take_the_plain_version_and_count_no_launch():
     before = port.dma_read.launches
     x = torch.ones((256, 1024))

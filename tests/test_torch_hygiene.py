@@ -13,7 +13,7 @@ from kubeoperator_tpu_torch.ops import _build
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "kubeoperator_tpu_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "kernel_sweep.py"]
 
 
 def _imported_modules(path: Path) -> set[str]:
