@@ -38,7 +38,21 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      (ranks=8)`, `verify_ring_attention()` causal and not,
      `bench_ring_attention(seq_per_device=256, iters=4)`
  10. with 2 or more cards only: 2 processes through the KO_TPU_* env
-     contract, each running `tpu diag` and the gate at 2 chips
+     contract, each running `tpu diag` and the gate at 2 chips with
+     KO_TPU_TRAIN_STEPS=2 (mesh (1,1,1,2): the tp all-reduce pair over
+     NCCL); both ranks must report `train.ok`
+ 11. the gate with training on one card: `psum_smoke.main()` with
+     KO_TPU_TRAIN_STEPS=4 and KO_TPU_EXPECTED_CHIPS=1 (default NetConfig,
+     f32, mesh (1,1,1,1)) must be ok with a finite, descending `train`
+     block; then `koctl tpu train-smoke --steps 3` must exit 0
+ 12. the validation net at BENCH_CONFIG on one card (d_model 4096, d_ff
+     32768, 8 heads, b_local 48, s_local 1024, bf16, remat none), 12
+     steps as `bench.py` runs it: steps/s, model TFLOP/s, MFU against the
+     registry's bf16 peak, the losses and peak memory, then a profile of
+     2 more steps (device time by kernel, busy share); any non-finite
+     loss fails the run, losses that do not descend are flagged
+The train path (phases 11-12) runs no hand-written kernel: K1's and K2's
+counts are set to 0 before it and printed after it.
 Then the kernels line (JSON) and, last, the result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 A copy of everything measured goes to chiprun_out/chip_smoke.json.
@@ -334,7 +348,7 @@ def multi_card(torch) -> dict | None:
         env = dict(os.environ, KO_TPU_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
                    KO_TPU_NUM_PROCESSES="2", KO_TPU_PROCESS_ID=str(rank),
                    KO_TPU_EXPECTED_CHIPS="2")
-        env.pop("KO_TPU_TRAIN_STEPS", None)
+        env["KO_TPU_TRAIN_STEPS"] = "2"
         procs.append(subprocess.Popen(
             [sys.executable, "-c", script], cwd=ROOT, env=env,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
@@ -356,9 +370,11 @@ def multi_card(torch) -> dict | None:
     bound_ms = chunk_bytes / (NVLINK_GBPS * 1e9) * 1e3  # (n - 1) chunks, n = 2
     for r in results:
         rep, smoke = r["report"], r["smoke"]
+        train = smoke.get("train", {})
         if not (rep["ring_all_gather_correct"] and rep["ring_attention_correct"]
                 and smoke["ok"] and smoke["ring_attention_correct"]
-                and smoke["chips"] == 2 and r["exact"]):
+                and smoke["chips"] == 2 and r["exact"] and train.get("ok")
+                and train.get("mesh") == {"dp": 1, "pp": 1, "sp": 1, "tp": 2}):
             fail(f"phase 10 rank {r['rank']}: {rep.get('ring_all_gather_correct')} "
                  f"{rep.get('ring_attention_correct')} {smoke}")
         if r["diag_launches"] == 0:
@@ -368,13 +384,140 @@ def multi_card(torch) -> dict | None:
               f"ring busbw={rep['pallas_ring']['busbw_gbps']:.1f} GB/s; "
               f"16 MB shard kernel_ms={r['kernel_ms']:.4f} "
               f"bound_ms={bound_ms:.4f} (one NVLink direction) "
-              f"library_ms={r['library_ms']:.4f} (all_gather_into_tensor)",
+              f"library_ms={r['library_ms']:.4f} (all_gather_into_tensor); "
+              f"train at mesh {train['mesh']} ok, losses {train['losses']}",
               flush=True)
     multi = dict(cards=smi, ranks=results, bound_ms=bound_ms)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_multi.json").write_text(json.dumps(multi, indent=2))
     return multi
+
+
+def train_gate(koctl, psum_smoke) -> dict:
+    """Phase 11: the gate with KO_TPU_TRAIN_STEPS=4 on one card, then
+    `koctl tpu train-smoke --steps 3`."""
+    os.environ["KO_TPU_EXPECTED_CHIPS"] = "1"
+    os.environ["KO_TPU_TRAIN_STEPS"] = "4"
+    try:
+        rc, text = capture(psum_smoke.main)
+    finally:
+        del os.environ["KO_TPU_TRAIN_STEPS"]
+    lines = [ln for ln in text.splitlines()
+             if ln.startswith("KO_TPU_SMOKE_RESULT ")]
+    if rc != 0 or len(lines) != 1:
+        fail(f"psum_smoke with KO_TPU_TRAIN_STEPS=4 exit {rc}, "
+             f"{len(lines)} result lines")
+    smoke = json.loads(lines[0].split(" ", 1)[1])
+    train = smoke.get("train")
+    if not (smoke["ok"] is True and train and train["finite"]
+            and train["descending"] and len(train["losses"]) == 4
+            and train["mesh"] == {"dp": 1, "pp": 1, "sp": 1, "tp": 1}):
+        fail(f"gate with training not ok: {smoke}")
+    print(f"phase 11: gate ok with train {train}", flush=True)
+    rc, text = capture(koctl.main, ["tpu", "train-smoke", "--steps", "3"])
+    if rc != 0:
+        fail(f"koctl tpu train-smoke --steps 3 exit {rc}")
+    cli = json.loads(text)
+    print(f"phase 11: koctl tpu train-smoke --steps 3 exit 0, losses "
+          f"{cli['losses']}", flush=True)
+    return dict(gate=smoke, cli=cli)
+
+
+def _device_ms(event) -> float:
+    """An averaged profiler event's own device time in ms."""
+    return event.self_device_time_total / 1e3
+
+
+def _kernel_kind(name: str) -> str:
+    """Coarse class of a CUDA kernel by its name."""
+    low = name.lower()
+    if any(k in low for k in ("nvjet", "gemm", "cutlass", "xmma")):
+        return "matmul"
+    if "copy" in low:
+        return "copy/cast"
+    if "reduce" in low or "softmax" in low:
+        return "reduction"
+    return "elementwise"
+
+
+def profile_steps(step, params, x, steps: int = 2) -> dict:
+    """Device time by kernel over `steps` train steps (torch.profiler), the
+    steps' wall time and the device's busy share of it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        w0 = time.perf_counter()
+        for _ in range(steps):
+            loss, params = step(params, x)
+        float(params["w_head"][0, 0])
+        wall_ms = (time.perf_counter() - w0) * 1e3
+    kernels = [e for e in prof.key_averages() if _device_ms(e) > 0
+               and e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(_device_ms(e) for e in kernels)
+    top = sorted(kernels, key=_device_ms, reverse=True)[:12]
+    kinds: dict[str, float] = {}
+    for e in kernels:
+        kind = _kernel_kind(e.key)
+        kinds[kind] = kinds.get(kind, 0.0) + _device_ms(e)
+    rec = dict(steps=steps, wall_ms=wall_ms, device_busy_ms=busy_ms,
+               busy_share=busy_ms / wall_ms, by_kind_ms=kinds,
+               top=[dict(name=e.key[:120], ms=_device_ms(e), calls=e.count)
+                    for e in top])
+    if busy_ms == 0:
+        print("phase 12: the profiler saw no device time", flush=True)
+        return rec
+    print(f"phase 12: profile of {steps} steps: wall {wall_ms:.1f} ms, device "
+          f"busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%); by kind: "
+          + ", ".join(f"{k} {v:.1f} ms ({100 * v / busy_ms:.1f}%)"
+                      for k, v in sorted(kinds.items(), key=lambda kv: -kv[1])),
+          flush=True)
+    for t in rec["top"]:
+        print(f"phase 12:   {t['ms']:9.2f} ms  x{t['calls']:<4} {t['name']}",
+              flush=True)
+    return rec
+
+
+def train_bench(gen, smi: str) -> dict:
+    """Phase 12: the validation net at BENCH_CONFIG on one card, 12 steps,
+    then a profile of 2 more."""
+    import torch
+
+    from kubeoperator_tpu_torch.ops.train_smoke import run_train_smoke
+    from kubeoperator_tpu_torch.parallel import validation_net as vnet
+
+    cfg = vnet.BENCH_CONFIG
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = run_train_smoke(steps=12, peak_tflops_per_chip=gen.bf16_tflops_per_chip,
+                          cfg=cfg)
+    seconds = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not res["finite"]:
+        fail(f"BENCH_CONFIG losses not finite: {res['losses']}")
+    trend = "descending" if res["descending"] else "**NOT DESCENDING**"
+    step_flops = vnet.analytic_train_flops(vnet.mesh_spec_for(1), cfg)
+    bound_s = step_flops / (gen.bf16_tflops_per_chip * 1e12)
+    print(f"phase 12: BENCH_CONFIG on {smi}: steps/s={res['steps_per_s']} "
+          f"model TFLOP/s={res['model_tflops_per_s']} MFU={res['mfu_pct']}% "
+          f"step FLOPs={step_flops:.4g} (bf16 bound {bound_s:.4f} s a step) "
+          f"peak memory={peak_gb:.2f} GB; losses {res['losses']} {trend}; "
+          f"{seconds:.1f} s with the host build", flush=True)
+
+    # where a step's device time goes: 2 more steps under the profiler
+    mesh = vnet.build_mesh_for(device_type="cuda")
+    params, x, _ = vnet.build_params_and_batch(mesh, cfg=cfg)
+    step = vnet.make_train_step(mesh, cfg=cfg)
+    loss, params = step(params, x)
+    torch.cuda.synchronize()
+    profile_rec = profile_steps(step, params, x)
+    del params, x, loss
+    torch.cuda.empty_cache()
+    return dict(result=res, peak_memory_gb=peak_gb, seconds=seconds,
+                step_flops=step_flops, bf16_bound_s=bound_s,
+                profile=profile_rec, nvidia_smi=smi)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -582,6 +725,19 @@ def main(argv: list[str] | None = None) -> int:
 
     # 10. two processes, one card each, where there are two cards
     multi = multi_card(torch)
+
+    # 11-12. the train path, counts from 0 (it runs no hand-written kernel)
+    dma_read.launches = 0
+    ring_all_gather.launches = 0
+    gate_train = train_gate(koctl, psum_smoke)
+    bench_train = train_bench(gen, smi)
+    train_launches = dict(dma_read=dma_read.launches,
+                          ring_all_gather=ring_all_gather.launches)
+    print(f"phase 12: the train path launched K1 {train_launches['dma_read']} "
+          f"and K2 {train_launches['ring_all_gather']} times (it runs neither)",
+          flush=True)
+    if dist.is_initialized():
+        dist.destroy_process_group()
     n8 = ring_times["times"][8]
     forms = ["one card, virtual ranks"] + (["process per card"] if multi else [])
     kernels = {"kernels": [{
@@ -605,6 +761,8 @@ def main(argv: list[str] | None = None) -> int:
                   launches_per_bandwidth_call=per_call,
                   bandwidth_call=bw.to_dict(), ring=ring_times,
                   multi_device_path=path, multi_card=multi,
+                  train_gate=gate_train, train_bench=bench_train,
+                  train_path_launches=train_launches,
                   seconds=time.perf_counter() - t_start)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -1,11 +1,15 @@
-"""`koctl` verbs of the port: local-device diagnostics.
+"""`koctl` verbs of the port: local-device diagnostics and the train smoke.
 
     python -m kubeoperator_tpu_torch.cli.koctl tpu diag [--size 4096]
         [--iters 200] [--profile-dir DIR] [--cpu]
+    python -m kubeoperator_tpu_torch.cli.koctl tpu train-smoke [--steps 4]
+        [--cpu]
 
-Counterpart of `cmd_tpu_diag` in `kubeoperator_tpu/cli/koctl.py`, with the
-same report keys and honesty guards, checked against this card's entry in
-`parallel/topology.py` (`not_a_tpu` becomes `not_a_known_gpu`).
+Counterparts of `cmd_tpu_diag` and `tpu train-smoke` in
+`kubeoperator_tpu/cli/koctl.py`. The diag keeps the reference's report
+keys and honesty guards, checked against this card's entry in
+`parallel/topology.py` (`not_a_tpu` becomes `not_a_known_gpu`); the train
+smoke prints its result and exits 0 only when it is ok.
 """
 
 from __future__ import annotations
@@ -117,6 +121,16 @@ def cmd_tpu_diag(args) -> int:
     return 0
 
 
+def cmd_tpu_train_smoke(args) -> int:
+    """A few sharded training steps of the validation net over every rank."""
+    from kubeoperator_tpu_torch.ops import run_train_smoke
+
+    result = run_train_smoke(steps=args.steps,
+                             device="cpu" if args.cpu else None)
+    print(json.dumps(result, indent=2))
+    return 0 if result["ok"] else 1
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="koctl")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -131,6 +145,13 @@ def build_parser() -> argparse.ArgumentParser:
     diag_p.add_argument("--cpu", action="store_true",
                         help="run on the host instead of the card (tests)")
     diag_p.set_defaults(func=cmd_tpu_diag)
+    train_p = tsub.add_parser(
+        "train-smoke",
+        help="run a few sharded training steps of the validation net")
+    train_p.add_argument("--steps", type=int, default=4)
+    train_p.add_argument("--cpu", action="store_true",
+                         help="run on the host instead of the card (tests)")
+    train_p.set_defaults(func=cmd_tpu_train_smoke)
     return parser
 
 

@@ -11,8 +11,11 @@
                   with n virtual ranks, or one process per card)
   longcontext_check.py  ring-attention exactness + throughput over the
                   ring (the long-context path of parallel/longcontext.py)
+  train_smoke.py  a few sharded training steps of the validation net
+                  (parallel/validation_net.py), emitting KO_TPU_TRAIN_RESULT
   psum_smoke.py   the cluster smoke test: correctness, ring attention at
-                  2+ ranks, psum bus-bandwidth, emitting KO_TPU_SMOKE_RESULT
+                  2+ ranks, psum bus-bandwidth, the train smoke when
+                  KO_TPU_TRAIN_STEPS>0, emitting KO_TPU_SMOKE_RESULT
 
 Only what is ported is exported; see ROADMAP.md for the rest. The kernel
 wrappers themselves stay in their modules (`ops.dma_read.dma_read`,
@@ -42,6 +45,7 @@ from kubeoperator_tpu_torch.ops.ring_gather import (
     ring_all_gather,
     verify_ring_all_gather,
 )
+from kubeoperator_tpu_torch.ops.train_smoke import run_train_smoke
 
 __all__ = [
     "CollectiveResult",
@@ -60,4 +64,5 @@ __all__ = [
     "bench_ring_all_gather",
     "ring_all_gather",
     "verify_ring_all_gather",
+    "run_train_smoke",
 ]

@@ -33,7 +33,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from kubeoperator_tpu_torch.ops.timing import differential_time_per_iter
-from kubeoperator_tpu_torch.parallel.mesh import flat_axis_mesh
+from kubeoperator_tpu_torch.parallel.mesh import flat_axis_mesh, mesh_device
 
 AXIS = "devices"
 
@@ -61,13 +61,6 @@ def _bus_factor(op: str, n: int) -> float:
     if op in ("reduce_scatter", "all_to_all"):
         return (n - 1) / n
     return 1.0  # ppermute
-
-
-def mesh_device(mesh: DeviceMesh) -> torch.device:
-    """The device this rank's shards live on."""
-    if mesh.device_type == "cuda":
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device(mesh.device_type)
 
 
 def collective_step(op: str, mesh: DeviceMesh) -> Callable[[torch.Tensor], torch.Tensor]:

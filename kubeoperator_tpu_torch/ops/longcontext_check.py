@@ -21,14 +21,13 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
-from kubeoperator_tpu_torch.ops.collectives import mesh_device
 from kubeoperator_tpu_torch.ops.timing import differential_time_per_iter
 from kubeoperator_tpu_torch.parallel.longcontext import (
     reference_attention,
     ring_attention,
     ring_attention_local,
 )
-from kubeoperator_tpu_torch.parallel.mesh import flat_axis_mesh
+from kubeoperator_tpu_torch.parallel.mesh import flat_axis_mesh, mesh_device
 
 AXIS = "sp"
 

@@ -9,10 +9,9 @@ emit the one-line result the adm post-hook parses:
 
 `chips` is the world size (one card per rank). Exit code 0 only if
 correctness holds and the chip count matches `KO_TPU_EXPECTED_CHIPS`;
-bandwidth thresholds are enforced server-side, as in the reference.
-
-Not ported yet, and refused rather than skipped: the train smoke behind
-`KO_TPU_TRAIN_STEPS>0` (ROADMAP.md A7).
+bandwidth thresholds are enforced server-side, as in the reference. With
+`KO_TPU_TRAIN_STEPS>0` the gate also runs that many training steps of the
+validation net (`ops/train_smoke.py`) and folds their verdict into `ok`.
 """
 
 from __future__ import annotations
@@ -30,6 +29,7 @@ from kubeoperator_tpu_torch.ops.collectives import (
     verify_psum_correctness,
 )
 from kubeoperator_tpu_torch.ops.longcontext_check import verify_ring_attention
+from kubeoperator_tpu_torch.ops.train_smoke import run_train_smoke
 from kubeoperator_tpu_torch.parallel.mesh import flat_axis_mesh
 from kubeoperator_tpu_torch.parallel.multislice import initialize_from_env
 
@@ -39,11 +39,6 @@ def run_smoke(
     iters: int = 10,
     device: torch.device | str | None = None,
 ) -> dict:
-    train_steps = int(os.environ.get("KO_TPU_TRAIN_STEPS", "0"))
-    if train_steps > 0:
-        raise NotImplementedError(
-            "KO_TPU_TRAIN_STEPS>0: the train smoke (validation net) is not "
-            "ported yet (ROADMAP.md A7)")
     dev = initialize_from_env(device)
     chips = dist.get_world_size()
     expected = int(os.environ.get("KO_TPU_EXPECTED_CHIPS", "0"))
@@ -63,7 +58,7 @@ def run_smoke(
         table.append({"size_mb": size, "busbw_gbps": round(r.busbw_gbps, 3)})
         best = max(best, r.busbw_gbps)
 
-    return {
+    result = {
         "gbps": round(best, 3),
         "chips": chips,
         "ok": bool(ok) and bool(ring_ok)
@@ -75,6 +70,16 @@ def run_smoke(
         "num_processes": chips,
         "table": table,
     }
+
+    # optional deeper gate (smoke_train_steps var -> KO_TPU_TRAIN_STEPS):
+    # a few real sharded training steps of the validation net; loss must
+    # be finite and descending on the actual cards
+    train_steps = int(os.environ.get("KO_TPU_TRAIN_STEPS", "0"))
+    if train_steps > 0:
+        train = run_train_smoke(steps=train_steps, device=dev)
+        result["train"] = train
+        result["ok"] = bool(result["ok"]) and bool(train["ok"])
+    return result
 
 
 def main(device: torch.device | str | None = None) -> int:

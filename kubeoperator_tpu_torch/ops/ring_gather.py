@@ -44,13 +44,9 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from kubeoperator_tpu_torch.ops import _build
-from kubeoperator_tpu_torch.ops.collectives import (
-    AXIS,
-    CollectiveResult,
-    mesh_device,
-)
+from kubeoperator_tpu_torch.ops.collectives import AXIS, CollectiveResult
 from kubeoperator_tpu_torch.ops.timing import differential_time_per_iter
-from kubeoperator_tpu_torch.parallel.mesh import flat_axis_mesh
+from kubeoperator_tpu_torch.parallel.mesh import flat_axis_mesh, mesh_device
 from kubeoperator_tpu_torch.utils.device import resolve_device
 
 COLS = 1024          # row width of the reference's layout

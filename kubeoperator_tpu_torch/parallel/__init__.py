@@ -1,2 +1,2 @@
-"""Device registry, process-group bootstrap, the flat device mesh and ring
-attention over it."""
+"""Device registry, process-group bootstrap, meshes, the differentiable
+collectives, ring attention, and the validation net built on them."""

@@ -3,20 +3,27 @@
 Counterpart of `reference_attention`, `ring_attention_local` and
 `ring_attention` in `kubeoperator_tpu/parallel/longcontext.py`, in the same
 [batch, seq, heads, dim] layout. Each rank holds a sequence shard; K/V
-blocks rotate to the right neighbour (`batch_isend_irecv`, as the port's
-ppermute) while an online-softmax carry (o, m, l) in float32 keeps the
-result exact. The reference rotates n times; the last rotation feeds
-nothing, so the port makes n - 1.
+blocks rotate to the right neighbour (`parallel/comm.py::ppermute`) while an
+online-softmax carry (o, m, l) in float32 keeps the result exact. The
+reference rotates n times; the last rotation feeds nothing, so the port
+makes n - 1. Like the reference it is differentiable: the rotation's
+backward sends the gradient to the left neighbour, so the validation net
+trains through it.
 
 Precision follows the reference's `preferred_element_type=f32,
 precision=HIGHEST`: operands keep their type and products accumulate into
 a float32 result. On the card a bf16 product goes to `aten::bmm.dtype`
-(bf16 operands, f32 output); on the host, where that overload has no
-kernel, bf16 operands are widened to f32 first, which is exact (a product
-of two bf16 values fits in f32), so both give the reference's numbers up to
-summation order. A float32 product needs `torch.backends.cuda.matmul.
-allow_tf32 = False` on the card, which `ops/longcontext_check.py` sets for
-its exactness check.
+(bf16 operands, f32 output), which has no derivative formula, so
+`_BmmF32` gives it one. Its gradient products take the float32
+cotangent unrounded, as the reference's transpose does (an f32 x bf16
+product with an f32 result): float32 products with the bf16 operand
+widened. On the host, where that overload has no kernel, bf16 operands
+are widened to f32 first, which is exact (a product of two bf16 values
+fits in f32), so both give the reference's numbers up to summation order.
+A float32 product, and so that gradient, needs
+`torch.backends.cuda.matmul.allow_tf32 = False` on the card (PyTorch's
+default), which `ops/longcontext_check.py` also sets for its exactness
+check.
 
 Ulysses all-to-all attention (the reference's `seq_to_heads` ...
 `ulysses_attention`) is not ported yet (ROADMAP.md A3).
@@ -27,6 +34,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
+
+from kubeoperator_tpu_torch.parallel.comm import ppermute
 
 _NEG = -1e30  # finite -inf stand-in: masked logits underflow exp() to 0.0
 
@@ -46,33 +55,41 @@ def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.einsum("bhqk,bkhd->bqhd", p, v)
 
 
+def _bmm_dtype(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[..., M, K] @ [..., K, N] through `aten::bmm.dtype`: operands of one
+    type, float32 accumulation and result (the card only)."""
+    lead = a.shape[:-2]
+    out = torch.ops.aten.bmm.dtype(a.reshape(-1, *a.shape[-2:]),
+                                   b.reshape(-1, *b.shape[-2:]), torch.float32)
+    return out.view(*lead, *out.shape[1:])
+
+
+class _BmmF32(torch.autograd.Function):
+    """`_bmm_dtype` with its gradient: grad_a = g @ bᵀ and grad_b = aᵀ @ g
+    in float32 from the unrounded float32 cotangent g, the other operand
+    widened (exact), each cast to its operand's type at the end."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _bmm_dtype(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        grad_a = torch.matmul(g, b.transpose(-1, -2).float())
+        grad_b = torch.matmul(a.transpose(-1, -2).float(), g)
+        return grad_a.to(a.dtype), grad_b.to(b.dtype)
+
+
 def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """[B, H, M, K] @ [B, H, K, N] -> float32 [B, H, M, N], operands in
-    their own type, float32 accumulation and result."""
+    their own type, float32 accumulation and result; differentiable."""
     if a.dtype == torch.float32:
         return torch.matmul(a, b)
     if a.is_cuda:
-        lead = a.shape[:2]
-        out = torch.ops.aten.bmm.dtype(a.reshape(-1, *a.shape[2:]),
-                                       b.reshape(-1, *b.shape[2:]),
-                                       torch.float32)
-        return out.view(*lead, *out.shape[1:])
+        return _BmmF32.apply(a, b)
     return torch.matmul(a.float(), b.float())
-
-
-def _rotate(x: torch.Tensor, group) -> torch.Tensor:
-    """Send x to the right neighbour, return the left neighbour's."""
-    n = dist.get_world_size(group)
-    rank = dist.get_rank(group)
-    got = torch.empty_like(x)
-    for work in dist.batch_isend_irecv([
-        dist.P2POp(dist.isend, x, dist.get_global_rank(group, (rank + 1) % n),
-                   group=group),
-        dist.P2POp(dist.irecv, got,
-                   dist.get_global_rank(group, (rank - 1) % n), group=group),
-    ]):
-        work.wait()
-    return got
 
 
 def ring_attention_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -109,7 +126,7 @@ def ring_attention_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         o = o * correction.transpose(1, 2) + pv.transpose(1, 2)
         m = m_new
         if t < n - 1:
-            kb, vb = _rotate(kb, group), _rotate(vb, group)
+            kb, vb = ppermute(kb, group), ppermute(vb, group)
     return (o / l.transpose(1, 2)).to(q.dtype)
 
 

@@ -1,5 +1,6 @@
-"""Kernels K1 and K2 on the card against their plain versions, and ring
-attention on the card. Needs a CUDA card and nvcc; skips elsewhere. Imports neither JAX nor the JAX package, so it runs
+"""Kernels K1 and K2 on the card against their plain versions, ring
+attention and its bf16 product's gradient on the card, and one training
+step of the validation net. Needs a CUDA card and nvcc; skips elsewhere. Imports neither JAX nor the JAX package, so it runs
 on a machine without them:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
@@ -144,3 +145,53 @@ def test_ring_attention_verifies_at_world_one(dev):
     initialize_from_env()
     assert longcontext_check.verify_ring_attention() is True
     assert longcontext_check.verify_ring_attention(causal=False) is True
+
+
+def _bf16_grads_hold_to_float64(ga, gb, a, b, w):
+    """The gradients of sum(w * (a @ b)) against float64 autograd with the
+    unrounded w: rounded to bf16 once, the float64 result is hit on all but
+    a few ties (the reference's f32 x bf16 transpose does the same), while a
+    cotangent rounded to bf16 before its products misses about 40% of it;
+    every entry stays within one bf16 step (2^-7 relative at worst)."""
+    a64, b64 = (t.detach().double().requires_grad_() for t in (a, b))
+    ra, rb = torch.autograd.grad(((a64 @ b64) * w.double()).sum(), (a64, b64))
+    for got, want in ((ga, ra), (gb, rb)):
+        assert got.dtype == torch.bfloat16
+        assert (got.cpu() != want.cpu().to(torch.bfloat16)).float().mean() <= 0.01
+        torch.testing.assert_close(got.double(), want, rtol=2 ** -7, atol=1e-6)
+
+
+def test_bmm_dtype_gradient(dev):
+    # aten::bmm.dtype has no derivative formula; _BmmF32 supplies one. The
+    # forward sums exact bf16 x bf16 products in f32; the gradients take the
+    # f32 cotangent unrounded, so they are float64's rounded to bf16 but for
+    # a few ties
+    from kubeoperator_tpu_torch.parallel import longcontext as lc
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    a = torch.randn((2, 4, 64, 32), device=dev, generator=gen).bfloat16()
+    b = torch.randn((2, 4, 32, 48), device=dev, generator=gen).bfloat16()
+    w = torch.randn((2, 4, 64, 48), device=dev, generator=gen)
+    a.requires_grad_()
+    b.requires_grad_()
+    out = lc._bmm_f32(a, b)
+    assert out.dtype == torch.float32 and out.grad_fn is not None
+    torch.testing.assert_close(out.detach().double(),
+                               a.detach().double() @ b.detach().double(),
+                               rtol=1e-6, atol=1e-5)
+    _bf16_grads_hold_to_float64(*torch.autograd.grad((out * w).sum(), (a, b)),
+                                a, b, w)
+
+
+def test_train_step_at_the_default_config(dev):
+    # the default NetConfig (f32) on one card, mesh (1,1,1,1): the first
+    # two losses the reference gives on the host for the same seed; f32
+    # products (no TF32) in another summation order stay within 1e-5
+    from kubeoperator_tpu_torch.ops.train_smoke import run_train_smoke
+    from kubeoperator_tpu_torch.parallel.multislice import initialize_from_env
+
+    initialize_from_env()
+    r = run_train_smoke(steps=2)
+    assert r["ok"] is True and r["devices"] == 1
+    assert r["mesh"] == {"dp": 1, "pp": 1, "sp": 1, "tp": 1}
+    assert r["losses"] == pytest.approx([0.19579065, 0.19051692], rel=1e-5)

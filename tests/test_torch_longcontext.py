@@ -1,7 +1,8 @@
 """The port's ring attention against the JAX package's, on the same numpy
 arrays: full reference attention, the ring at world size 1 in process, and
 the ring at 2 and 4 gloo ranks (one process each) against the JAX ring on
-a mesh of the same size."""
+a mesh of the same size. The ring's gradient at 2 and 4 ranks is held
+against autograd through reference attention on the gathered arrays."""
 
 import dataclasses
 
@@ -20,6 +21,7 @@ from kubeoperator_tpu_torch.parallel import longcontext as port_lc
 from kubeoperator_tpu_torch.parallel.mesh import flat_axis_mesh
 from kubeoperator_tpu_torch.parallel.multislice import initialize_from_env
 
+from tests.test_torch_cuda import _bf16_grads_hold_to_float64
 from tests.test_torch_ops import spawn_ranks
 
 # f32 on both sides, same products in another summation order: a few ulp
@@ -137,6 +139,20 @@ out = {"rank": rank, "n": n, "verify": lc.verify_ring_attention(mesh),
                                         mesh=mesh).to_dict()}
 for causal in (False, True):
     out[f"causal={causal}"] = ring_attention(q, k, v, mesh, causal=causal).tolist()
+# the gradient of sum(w * ring(q, k, v)), with the rotation's backward and
+# then with it dropped (no gradient crosses ranks)
+from kubeoperator_tpu_torch.parallel import comm
+w = torch.from_numpy(np.ascontiguousarray(
+    rng.standard_normal((2, 8 * n, 4, 16)).astype(np.float32)[:, rank * 8:(rank + 1) * 8]))
+def grads():
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    (ring_attention(*leaves, mesh, causal=True) * w).sum().backward()
+    return [t.grad.tolist() for t in leaves]
+out["grads"] = grads()
+real = comm._PPermute.backward
+comm._PPermute.backward = staticmethod(lambda ctx, g: (None, None))
+out["grads_dropped"] = grads()
+comm._PPermute.backward = real
 dist.barrier()
 print("RANK_RESULT " + json.dumps(out), flush=True)
 os._exit(0)
@@ -165,3 +181,57 @@ def test_verify_and_bench_across_ranks(attention_ranks):
         b = r["bench"]
         assert b["n_devices"] == n and b["seq_global"] == 16 * n
         assert b["tflops"] >= 0 and b["time_per_iter_s"] > 0
+
+
+def _reference_grads(n: int) -> list[np.ndarray]:
+    """d/d(q, k, v) of sum(w * attention) on the full arrays (autograd
+    through reference_attention), with the ranks' w."""
+    rng = np.random.default_rng(0)
+    arrays = [rng.standard_normal((2, 8 * n, 4, 16)).astype(np.float32)
+              for _ in range(3)]
+    w = torch.from_numpy(rng.standard_normal((2, 8 * n, 4, 16)).astype(np.float32))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in arrays]
+    (port_lc.reference_attention(*leaves, causal=True) * w).sum().backward()
+    return [t.grad.numpy() for t in leaves]
+
+
+def _gathered_grads(ranks, key: str) -> list[np.ndarray]:
+    return [np.concatenate([np.asarray(r[key][i], np.float32) for r in ranks],
+                           axis=1) for i in range(3)]
+
+
+def test_ring_gradient_matches_reference_attention(attention_ranks):
+    n = len(attention_ranks)
+    for got, want, name in zip(_gathered_grads(attention_ranks, "grads"),
+                               _reference_grads(n), "qkv"):
+        np.testing.assert_allclose(got, want, rtol=RING_TOL, atol=RING_TOL,
+                                   err_msg=name)
+
+
+def test_ring_gradient_needs_the_rotation_backward(attention_ranks):
+    # the same check fails when the rotation's backward is dropped: k and
+    # v miss every later rank's contribution
+    n = len(attention_ranks)
+    got = _gathered_grads(attention_ranks, "grads_dropped")
+    want = _reference_grads(n)
+    np.testing.assert_allclose(got[0], want[0], rtol=RING_TOL, atol=RING_TOL)
+    for i in (1, 2):
+        assert not np.allclose(got[i], want[i], rtol=RING_TOL, atol=RING_TOL)
+
+
+def test_bmm_f32_function_backward(monkeypatch):
+    # the card's product (aten::bmm.dtype) has no host kernel; with the
+    # host's widening product in its place, _BmmF32's backward takes the
+    # f32 cotangent at full precision, like autograd through that product
+    monkeypatch.setattr(port_lc, "_bmm_dtype",
+                        lambda a, b: torch.matmul(a.float(), b.float()))
+    rng = np.random.default_rng(4)
+    a, b = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).bfloat16()
+            for s in ((2, 4, 64, 32), (2, 4, 32, 48)))
+    w = torch.from_numpy(rng.standard_normal((2, 4, 64, 48)).astype(np.float32))
+    a1, b1 = (t.clone().requires_grad_() for t in (a, b))
+    out = port_lc._BmmF32.apply(a1, b1)
+    assert torch.equal(out, torch.matmul(a.float(), b.float()))
+    _bf16_grads_hold_to_float64(*torch.autograd.grad((out * w).sum(), (a1, b1)),
+                                a, b, w)
+
