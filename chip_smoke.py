@@ -40,7 +40,10 @@ Phases; any failure ends the run with a non-zero exit and no result line:
  10. with 2 or more cards only: 2 processes through the KO_TPU_* env
      contract, each running `tpu diag` and the gate at 2 chips with
      KO_TPU_TRAIN_STEPS=2 (mesh (1,1,1,2): the tp all-reduce pair over
-     NCCL); both ranks must report `train.ok`
+     NCCL); both ranks must report `train.ok`; then the tenant workload
+     across the two cards: `run_training` at the default config on
+     (data=2), (fsdp=2) and (tp=2), the reference's losses, and a serve
+     reshard from 2 ranks to 1
  11. the gate with training on one card: `psum_smoke.main()` with
      KO_TPU_TRAIN_STEPS=4 and KO_TPU_EXPECTED_CHIPS=1 (default NetConfig,
      f32, mesh (1,1,1,1)) must be ok with a finite, descending `train`
@@ -51,8 +54,18 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      registry's bf16 peak, the losses and peak memory, then a profile of
      2 more steps (device time by kernel, busy share); any non-finite
      loss fails the run, losses that do not descend are flagged
-The train path (phases 11-12) runs no hand-written kernel: K1's and K2's
-counts are set to 0 before it and printed after it.
+ 13. the tenant workload (`workloads/`) at BENCH_CONFIG on mesh (data=1,
+     fsdp=1, tp=1): `run_training(steps=12, mode="auto")` (the pjit
+     path): steps/s, model TFLOP/s, MFU, peak memory, then a profile of 2
+     more steps; `run_serving` of the trained params (gathered to the
+     host) for 4 requests: p50/p95 and steady requests/s against the
+     forward's bf16 bound; `python -m kubeoperator_tpu_torch.workloads.
+     harness` in a subprocess; and at the default (f32) config the resume
+     drill: 6 steps against 3 steps + save + restore + 3 steps, equal
+     losses, which are the reference's
+The train path (phases 11-12) and the workload (phase 13) run no
+hand-written kernel: K1's and K2's counts are set to 0 before them and
+printed after them.
 Then the kernels line (JSON) and, last, the result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 A copy of everything measured goes to chiprun_out/chip_smoke.json.
@@ -68,6 +81,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -87,6 +101,20 @@ RING_SHARD_ROWS = 3904                # bench_ring_all_gather's 16 MB shard
 RING_RAGGED_ROWS = 1001               # 1,001-row shards: ragged pieces
 RING_REPEATS = 200                    # back-to-back launches at n = 8
 NVLINK_GBPS = 450.0                   # one NVLink direction (data sheet)
+# the reference's `run_training` losses at the default NetConfig (f32, seed
+# 0) on the host, as its records round them: 6 steps on one device, 4 on
+# the two-device meshes of phase 10 (tests/test_torch_workloads.py holds
+# them to the JAX package). The card's f32 products (no TF32) sum in
+# other orders: 1e-5 relative, plus the records' rounding.
+WORKLOAD_LOSSES = {
+    "data=1,fsdp=1,tp=1": [0.174233, 0.068005, 0.028816, 0.017432, 0.014438,
+                           0.013052],
+    "data=2,fsdp=1,tp=1": [0.174858, 0.083324, 0.042316, 0.024327],
+    "data=1,fsdp=2,tp=1": [0.174858, 0.083324, 0.042316, 0.024327],
+    "data=1,fsdp=1,tp=2": [0.174233, 0.068005, 0.028816, 0.017432],
+}
+LOSS_RTOL, LOSS_ATOL = 1e-5, 1e-6
+SERVE_REQUESTS = 4          # each request draws a 201 M-value host batch
 
 
 def fail(msg: str) -> None:
@@ -318,12 +346,66 @@ exact = torch.equal(rg.ring_all_gather(x, mesh), x)
 kernel_ms = ms(lambda: rg.ring_all_gather(x, mesh))
 library_ms = ms(lambda: dist.all_gather_into_tensor(gathered, local))
 rg.raise_on_ring_error()
+import chip_smoke
+workload = chip_smoke.workload_ranks()
 print("RANK_RESULT " + json.dumps(dict(
     rank=rank, rc=rc, report=report, diag_launches=diag_launches, smoke=smoke,
-    exact=exact, kernel_ms=kernel_ms, library_ms=library_ms)), flush=True)
+    exact=exact, kernel_ms=kernel_ms, library_ms=library_ms,
+    workload=workload)), flush=True)
 dist.barrier()
 dist.destroy_process_group()
 """
+
+
+def workload_ranks() -> dict:
+    """Phase 10's workload half, run by each of its 2 processes:
+    `run_training` at the default config on (data=2), (fsdp=2) and (tp=2)
+    across both ranks, then `run_serving` on (data=2) resharded onto rank 0
+    alone after 2 of 4 requests."""
+    from kubeoperator_tpu_torch.parallel.mesh import MeshSpec
+    from kubeoperator_tpu_torch.workloads import harness, serve
+
+    out = {}
+    for spec in ("data=2,fsdp=1,tp=1", "data=1,fsdp=2,tp=1", "data=1,fsdp=1,tp=2"):
+        run = harness.run_training(MeshSpec.parse(spec).build(), steps=4)
+        out[spec] = {k: run[k] for k in ("ok", "losses", "mode", "devices",
+                                         "steps_per_s")}
+
+    def reshard(served, _latency):
+        if served == 2:
+            return ("reshard", MeshSpec.parse("data=1,fsdp=1,tp=1"))
+        return None
+
+    rec = serve.run_serving(MeshSpec.parse("data=2,fsdp=1,tp=1").build(),
+                            requests=4, on_request=reshard)
+    out["reshard"] = {k: rec[k] for k in ("ok", "served", "degraded", "drained",
+                                          "drain_reason", "devices", "outputs")}
+    return out
+
+
+def check_workload_ranks(results: list[dict]) -> None:
+    """Phase 10: both ranks' training runs are the reference's, and the
+    reshard leaves rank 0 serving alone."""
+    for r in results:
+        wl = r["workload"]
+        for spec in ("data=2,fsdp=1,tp=1", "data=1,fsdp=2,tp=1", "data=1,fsdp=1,tp=2"):
+            run = wl[spec]
+            if not (run["ok"] and run["mode"] == "pjit" and run["devices"] == 2
+                    and losses_match(run["losses"], spec)):
+                fail(f"phase 10 rank {r['rank']} workload on {spec}: {run}")
+    kept, left = (results[0]["workload"]["reshard"],
+                  results[1]["workload"]["reshard"])
+    if not (kept["served"] == 4 and kept["degraded"] and not kept["drained"]
+            and kept["devices"] == 1 and left["served"] == 2 and left["drained"]
+            and left["outputs"] == kept["outputs"][:2]):
+        fail(f"phase 10 serve reshard 2 -> 1: rank 0 {kept}, rank 1 {left}")
+    print(f"phase 10: workload across 2 cards: losses "
+          + "; ".join(f"{s} {results[0]['workload'][s]['losses']}"
+                      for s in ("data=2,fsdp=1,tp=1", "data=1,fsdp=2,tp=1",
+                                "data=1,fsdp=1,tp=2"))
+          + f" (the reference's); serve reshard 2 -> 1: rank 0 served "
+          f"{kept['served']}, rank 1 stopped after {left['served']} "
+          f"({left['drain_reason']})", flush=True)
 
 
 def multi_card(torch) -> dict | None:
@@ -387,6 +469,7 @@ def multi_card(torch) -> dict | None:
               f"library_ms={r['library_ms']:.4f} (all_gather_into_tensor); "
               f"train at mesh {train['mesh']} ok, losses {train['losses']}",
               flush=True)
+    check_workload_ranks(results)
     multi = dict(cards=smi, ranks=results, bound_ms=bound_ms)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
@@ -441,9 +524,11 @@ def _kernel_kind(name: str) -> str:
     return "elementwise"
 
 
-def profile_steps(step, params, x, steps: int = 2) -> dict:
+def profile_steps(step, params, x, steps: int = 2, phase: str = "phase 12",
+                  fence=lambda p: float(p["w_head"][0, 0])) -> dict:
     """Device time by kernel over `steps` train steps (torch.profiler), the
-    steps' wall time and the device's busy share of it."""
+    steps' wall time and the device's busy share of it. `fence` reads a
+    value that depends on the last step's update."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -451,7 +536,7 @@ def profile_steps(step, params, x, steps: int = 2) -> dict:
         w0 = time.perf_counter()
         for _ in range(steps):
             loss, params = step(params, x)
-        float(params["w_head"][0, 0])
+        fence(params)
         wall_ms = (time.perf_counter() - w0) * 1e3
     kernels = [e for e in prof.key_averages() if _device_ms(e) > 0
                and e.device_type == torch.autograd.DeviceType.CUDA]
@@ -466,15 +551,15 @@ def profile_steps(step, params, x, steps: int = 2) -> dict:
                top=[dict(name=e.key[:120], ms=_device_ms(e), calls=e.count)
                     for e in top])
     if busy_ms == 0:
-        print("phase 12: the profiler saw no device time", flush=True)
+        print(f"{phase}: the profiler saw no device time", flush=True)
         return rec
-    print(f"phase 12: profile of {steps} steps: wall {wall_ms:.1f} ms, device "
+    print(f"{phase}: profile of {steps} steps: wall {wall_ms:.1f} ms, device "
           f"busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%); by kind: "
           + ", ".join(f"{k} {v:.1f} ms ({100 * v / busy_ms:.1f}%)"
                       for k, v in sorted(kinds.items(), key=lambda kv: -kv[1])),
           flush=True)
     for t in rec["top"]:
-        print(f"phase 12:   {t['ms']:9.2f} ms  x{t['calls']:<4} {t['name']}",
+        print(f"{phase}:   {t['ms']:9.2f} ms  x{t['calls']:<4} {t['name']}",
               flush=True)
     return rec
 
@@ -518,6 +603,132 @@ def train_bench(gen, smi: str) -> dict:
     return dict(result=res, peak_memory_gb=peak_gb, seconds=seconds,
                 step_flops=step_flops, bf16_bound_s=bound_s,
                 profile=profile_rec, nvidia_smi=smi)
+
+
+def losses_match(got: list[float], spec: str) -> bool:
+    """`got` are the reference's first losses on mesh `spec`."""
+    want = WORKLOAD_LOSSES[spec][:len(got)]
+    return len(got) == len(want) and all(
+        math.isclose(g, w, rel_tol=LOSS_RTOL, abs_tol=LOSS_ATOL)
+        for g, w in zip(got, want))
+
+
+def resume_drill(mesh, device_dir: Path) -> dict:
+    """6 steps at the default config against 3 steps, a checkpoint of the
+    gathered state, a restore and 3 more steps: the losses must be equal,
+    and the reference's."""
+    from kubeoperator_tpu_torch.parallel.validation_net import NetConfig
+    from kubeoperator_tpu_torch.workloads import checkpoint as ck
+    from kubeoperator_tpu_torch.workloads import harness, partition, step
+
+    cfg = NetConfig()
+    full = harness.run_training(mesh, cfg, steps=6, seed=0)
+    part = harness.run_training(mesh, cfg, steps=3, seed=0, return_state=True)
+    _, specs, _ = step.make_train_step(mesh, cfg)
+    _, gather = partition.make_shard_and_gather_fns(mesh, specs)
+    device_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=device_dir) as root:
+        man = ck.save_checkpoint(root, gather(part.pop("state")), step=3,
+                                 target_steps=6, mesh=part["mesh"])
+        back, _ = ck.restore_checkpoint(man["dir"], step.train_state_shapes(cfg))
+    resumed = harness.run_training(mesh, cfg, steps=3, seed=0, state=back)
+    losses = part["losses"] + resumed["losses"]
+    if losses != full["losses"] or resumed["start_step"] != 3:
+        fail(f"resume drill: {part['losses']} + {resumed['losses']} is not "
+             f"{full['losses']} (start_step {resumed['start_step']})")
+    if not losses_match(full["losses"], "data=1,fsdp=1,tp=1"):
+        fail(f"resume drill: losses {full['losses']} are not the reference's "
+             f"{WORKLOAD_LOSSES['data=1,fsdp=1,tp=1']}")
+    print(f"phase 13: resume drill at the default config: 3 + save + restore "
+          f"+ 3 steps give the 6-step losses exactly, the reference's "
+          f"{full['losses']}; checkpoint {len(man['leaves'])} leaves, "
+          f"{man['total_bytes']} bytes", flush=True)
+    return dict(losses=full["losses"], leaves=len(man["leaves"]))
+
+
+def workload_bench(gen, smi: str) -> dict:
+    """Phase 13: the tenant workload at BENCH_CONFIG on one card (module
+    docstring)."""
+    import torch
+
+    from kubeoperator_tpu_torch.parallel import validation_net as vnet
+    from kubeoperator_tpu_torch.parallel.mesh import MeshSpec
+    from kubeoperator_tpu_torch.workloads import harness, partition, serve, step
+
+    cfg = vnet.BENCH_CONFIG
+    mesh = MeshSpec.parse("data=1,fsdp=1,tp=1").build("cuda")
+    peak = gen.bf16_tflops_per_chip
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run = harness.run_training(mesh, cfg, steps=12, mode="auto",
+                               return_state=True)
+    seconds = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    state = run.pop("state")
+    if run["mode"] != "pjit" or not run["finite"]:
+        fail(f"workload at BENCH_CONFIG: mode {run['mode']}, losses {run['losses']}")
+    step_flops = step.analytic_step_flops(mesh, cfg)
+    bound_s = step_flops / (peak * 1e12)
+    mfu = 100.0 * run["model_tflops_per_s"] / peak
+    trend = "descending" if run["descending"] else "**NOT DESCENDING**"
+    print(f"phase 13: run_training at BENCH_CONFIG on {smi}: mode={run['mode']} "
+          f"steps/s={run['steps_per_s']} model TFLOP/s={run['model_tflops_per_s']} "
+          f"MFU={mfu:.3f}% step FLOPs={step_flops:.5g} (bf16 bound {bound_s:.4f} s "
+          f"a step) peak memory={peak_gb:.2f} GB; losses {run['losses']} {trend}; "
+          f"{seconds:.1f} s with the host build", flush=True)
+
+    step_fn, specs, _ = step.make_train_step(mesh, cfg)
+    x = step.build_batch(mesh, cfg, seed=1)
+    profile_rec = profile_steps(step_fn, state, x, phase="phase 13",
+                                fence=lambda s: float(s["params"]["step"]))
+    del x
+
+    # serving the trained parameters, gathered to the host as a checkpoint
+    # would hold them
+    _, gather = partition.make_shard_and_gather_fns(mesh, specs["params"])
+    host_params = gather(state["params"])
+    del state
+    torch.cuda.empty_cache()
+    fwd_flops = step_flops / 3.0
+    fwd_bound_ms = fwd_flops / (peak * 1e12) * 1e3
+    t0 = time.perf_counter()
+    rec = serve.run_serving(mesh, cfg, params=host_params, requests=SERVE_REQUESTS)
+    serve_s = time.perf_counter() - t0
+    if not (rec["ok"] and rec["served"] == SERVE_REQUESTS and rec["mode"] == "pjit"):
+        fail(f"run_serving at BENCH_CONFIG: {rec}")
+    print(f"phase 13: run_serving of the trained params, {SERVE_REQUESTS} "
+          f"requests: p50={rec['latency_p50_ms']} ms p95={rec['latency_p95_ms']} ms "
+          f"(steady) steady requests/s={rec['steady_requests_per_s']} against a "
+          f"forward bound of {fwd_bound_ms:.2f} ms ({1e3 / fwd_bound_ms:.2f} "
+          f"requests/s); digests {rec['outputs']}; {serve_s:.1f} s with the "
+          f"host batches", flush=True)
+    del host_params
+    torch.cuda.empty_cache()
+
+    # the job entry point, as the platform launches it
+    proc = subprocess.run(
+        [sys.executable, "-m", "kubeoperator_tpu_torch.workloads.harness"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("KO_TPU_WORKLOAD_RESULT ")]
+    if proc.returncode != 0 or len(lines) != 1:
+        fail(f"workloads.harness exit {proc.returncode}: {proc.stderr[-3000:]}")
+    sweep = json.loads(lines[0].split(" ", 1)[1])
+    base = sweep["baseline"]
+    if not (sweep["ok"] and sweep["devices"] == 1
+            and sweep.get("peak_tflops_per_chip") == peak
+            and losses_match(base["losses"], "data=1,fsdp=1,tp=1")):
+        fail(f"workloads.harness report: {sweep}")
+    print(f"phase 13: python -m kubeoperator_tpu_torch.workloads.harness exit 0: "
+          f"baseline {base}", flush=True)
+
+    drill = resume_drill(mesh, ROOT / "build" / "chip_smoke")
+    return dict(train=run, peak_memory_gb=peak_gb, seconds=seconds,
+                step_flops=step_flops, bf16_bound_s=bound_s, mfu_pct=mfu,
+                profile=profile_rec, serve=rec, serve_seconds=serve_s,
+                forward_bound_ms=fwd_bound_ms, harness=sweep,
+                resume_drill=drill, nvidia_smi=smi)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -736,6 +947,16 @@ def main(argv: list[str] | None = None) -> int:
     print(f"phase 12: the train path launched K1 {train_launches['dma_read']} "
           f"and K2 {train_launches['ring_all_gather']} times (it runs neither)",
           flush=True)
+
+    # 13. the tenant workload, counts from 0 (it runs no hand-written kernel)
+    dma_read.launches = 0
+    ring_all_gather.launches = 0
+    workload = workload_bench(gen, smi)
+    workload_launches = dict(dma_read=dma_read.launches,
+                             ring_all_gather=ring_all_gather.launches)
+    print(f"phase 13: the workload launched K1 {workload_launches['dma_read']} "
+          f"and K2 {workload_launches['ring_all_gather']} times (it runs "
+          f"neither)", flush=True)
     if dist.is_initialized():
         dist.destroy_process_group()
     n8 = ring_times["times"][8]
@@ -762,7 +983,8 @@ def main(argv: list[str] | None = None) -> int:
                   bandwidth_call=bw.to_dict(), ring=ring_times,
                   multi_device_path=path, multi_card=multi,
                   train_gate=gate_train, train_bench=bench_train,
-                  train_path_launches=train_launches,
+                  train_path_launches=train_launches, workload=workload,
+                  workload_launches=workload_launches,
                   seconds=time.perf_counter() - t_start)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -15,6 +15,10 @@ Each backward is the transpose of its forward:
   replicate      identity forward, all-reduce sum backward: a replicated
                  input feeding per-rank shards gets the sum of their
                  cotangents (the Megatron column-parallel input)
+  all_gather     concatenate every rank's block along a dim; backward
+                 reduce-scatters (sums) the cotangent back into blocks: the
+                 gather-on-use GSPMD inserts for a weight sharded over an
+                 axis whose ranks see different data (fsdp)
 
 A forward or backward issues its collectives in program order, and every
 rank of a group runs the same graph, so all ranks meet each collective in
@@ -59,6 +63,36 @@ def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     out = x.clone()
     dist.all_reduce(out, group=group)
     return out
+
+
+def gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's `x` concatenated along `dim`, in group-rank order."""
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x
+    x = x.movedim(dim, 0).contiguous()
+    out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+    dist.all_gather_into_tensor(out, x, group=group)
+    return out.movedim(0, dim)
+
+
+def _reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    x = x.movedim(dim, 0).contiguous()
+    out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
+    dist.reduce_scatter_tensor(out, x, group=group)
+    return out.movedim(0, dim)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter_dim(g, ctx.dim, ctx.group), None, None
 
 
 class _PPermute(torch.autograd.Function):
@@ -127,6 +161,12 @@ def psum(x: torch.Tensor, group) -> torch.Tensor:
 def replicate(x: torch.Tensor, group) -> torch.Tensor:
     """Identity; the backward sums the cotangent over `group`."""
     return x if _single(group) else _Replicate.apply(x, group)
+
+
+def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """All-gather along `dim` over `group`; the backward sums the cotangent
+    over the group and hands each rank its block (reduce-scatter)."""
+    return x if _single(group) else _AllGather.apply(x, dim, group)
 
 
 def axes_group(mesh: DeviceMesh, axes: tuple[str, ...]):

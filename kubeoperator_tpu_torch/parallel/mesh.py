@@ -2,8 +2,12 @@
 
 Counterpart of `MeshSpec`, `format_axes`, `build_mesh` and `flat_axis_mesh`
 in `kubeoperator_tpu/parallel/mesh.py`. One process drives one card, so a
-mesh is a `torch.distributed.device_mesh.DeviceMesh` over the ranks of
-the default group (set up by `parallel/multislice.py::initialize_from_env`).
+mesh is a `torch.distributed.device_mesh.DeviceMesh` over ranks of the
+default group (set up by `parallel/multislice.py::initialize_from_env`):
+all of them, or a list of them, as the reference builds meshes over a
+prefix of its devices. Building a mesh creates its process groups, which
+every rank of the default group takes part in; a rank outside the mesh
+then sits out whatever runs on it (`in_mesh`).
 `mesh_for_topology` is not ported: no path of the port needs it yet.
 """
 
@@ -105,10 +109,13 @@ class MeshSpec:
             pairs[fill_at] = (pairs[fill_at][0], n_devices // rest)
         return cls(axes=tuple(pairs))
 
-    def build(self, device_type: str | None = None) -> DeviceMesh:
-        """Materialize over every rank of the default group, whose size
-        must be `total_devices`."""
-        return build_mesh(self.axis_names, self.axis_lengths, device_type)
+    def build(self, device_type: str | None = None,
+              ranks: Sequence[int] | None = None) -> DeviceMesh:
+        """Materialize over `ranks` (default: every rank of the default
+        group), whose number must be `total_devices`. Every rank of the
+        default group calls this, in or out of `ranks`."""
+        return build_mesh(self.axis_names, self.axis_lengths, device_type,
+                          ranks)
 
     def describe(self) -> dict:
         """The JSON face ({axis: length}, insertion-ordered)."""
@@ -128,27 +135,39 @@ def build_mesh(
     axis_names: Sequence[str] = ("data", "model"),
     axis_shape: Sequence[int] | None = None,
     device_type: str | None = None,
+    ranks: Sequence[int] | None = None,
 ) -> DeviceMesh:
-    """A mesh over every rank of the default group.
+    """A mesh over `ranks` of the default group (default: all of them), laid
+    out row-major in their order.
 
     If `axis_shape` is omitted, all ranks land on the first axis and the
     rest get size 1. `device_type` defaults to the group's: "cuda" under
-    NCCL, "cpu" under gloo."""
+    NCCL, "cpu" under gloo. Every rank of the default group calls this,
+    since creating the mesh's groups is collective over it."""
     if not dist.is_initialized():
         raise RuntimeError(
             "no process group: call parallel.multislice.initialize_from_env "
             "first")
-    n = dist.get_world_size()
+    world = dist.get_world_size()
+    n = world if ranks is None else len(ranks)
     if axis_shape is None:
         axis_shape = (n,) + (1,) * (len(axis_names) - 1)
     if math.prod(axis_shape) != n:
         raise TopologyError(
             f"axis_shape {tuple(axis_shape)} needs {math.prod(axis_shape)} "
             f"devices, have {n}")
+    if ranks is not None and (len(set(ranks)) != n
+                              or not all(0 <= r < world for r in ranks)):
+        raise TopologyError(
+            f"mesh ranks {list(ranks)} must be distinct ranks of the "
+            f"{world}-rank process group")
     if device_type is None:
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return init_device_mesh(device_type, tuple(axis_shape),
-                            mesh_dim_names=tuple(axis_names))
+    if ranks is None:
+        return init_device_mesh(device_type, tuple(axis_shape),
+                                mesh_dim_names=tuple(axis_names))
+    layout = torch.tensor(list(ranks), dtype=torch.int).view(tuple(axis_shape))
+    return DeviceMesh(device_type, layout, mesh_dim_names=tuple(axis_names))
 
 
 def flat_axis_mesh(name: str = "devices",
@@ -162,6 +181,16 @@ def mesh_sizes(mesh: DeviceMesh | MeshSpec) -> dict[str, int]:
     if isinstance(mesh, MeshSpec):
         return mesh.describe()
     return dict(zip(mesh.mesh_dim_names, mesh.shape))
+
+
+def in_mesh(mesh: DeviceMesh) -> bool:
+    """Whether this rank is one of the mesh's."""
+    return mesh.get_coordinate() is not None
+
+
+def mesh_ranks(mesh: DeviceMesh) -> list[int]:
+    """The mesh's ranks of the default group, row-major."""
+    return mesh.mesh.flatten().tolist()
 
 
 def mesh_device(mesh: DeviceMesh) -> torch.device:

@@ -44,24 +44,35 @@ def bf16_from_f64(a: np.ndarray) -> torch.Tensor:
 
 def host_tensor(a: np.ndarray) -> torch.Tensor:
     """numpy array (bfloat16 included) → CPU tensor of the same type."""
-    a = np.ascontiguousarray(a)
+    a = np.ascontiguousarray(a).reshape(np.shape(a))   # keeps a 0-d array 0-d
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
     return torch.from_numpy(a)
 
 
-def local_shard(t: torch.Tensor, spec: Sequence[str | None],
+def spec_axes(entry: str | Sequence[str] | None) -> tuple[str, ...]:
+    """The mesh axes one entry of a placement cuts a dim along: none, one,
+    or a tuple of axes taken major to minor (as ``P(("data", "fsdp"))``)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def local_shard(t: torch.Tensor, spec: Sequence[str | Sequence[str] | None],
                 mesh: DeviceMesh) -> torch.Tensor:
     """This rank's block of the global `t`: dim i is cut into equal parts
-    along mesh axis spec[i] (None: kept whole) and the part at this rank's
-    coordinate on that axis is kept."""
+    along the mesh axes of spec[i] (None: kept whole; several axes: their
+    coordinates flattened row-major) and the part at this rank's coordinate
+    is kept. Dims past the end of `spec` are kept whole."""
     names = mesh.mesh_dim_names
-    for dim, axis in enumerate(spec):
-        if axis is None:
-            continue
-        parts = mesh.size(names.index(axis))
-        size = t.shape[dim] // parts
-        t = t.narrow(dim, mesh.get_local_rank(axis) * size, size)
+    for dim, entry in enumerate(spec):
+        parts, index = 1, 0
+        for axis in spec_axes(entry):
+            size = mesh.size(names.index(axis))
+            parts, index = parts * size, index * size + mesh.get_local_rank(axis)
+        if parts > 1:
+            size = t.shape[dim] // parts
+            t = t.narrow(dim, index * size, size)
     return t.contiguous()
 
 

@@ -1,6 +1,7 @@
 """Kernels K1 and K2 on the card against their plain versions, ring
-attention and its bf16 product's gradient on the card, and one training
-step of the validation net. Needs a CUDA card and nvcc; skips elsewhere. Imports neither JAX nor the JAX package, so it runs
+attention and its bf16 product's gradient on the card, one training step
+of the validation net, and one step and one forward of the tenant
+workload against the same on the host. Needs a CUDA card and nvcc; skips elsewhere. Imports neither JAX nor the JAX package, so it runs
 on a machine without them:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
@@ -195,3 +196,44 @@ def test_train_step_at_the_default_config(dev):
     assert r["ok"] is True and r["devices"] == 1
     assert r["mesh"] == {"dp": 1, "pp": 1, "sp": 1, "tp": 1}
     assert r["losses"] == pytest.approx([0.19579065, 0.19051692], rel=1e-5)
+
+
+def test_workload_step_and_forward_match_the_host(dev):
+    # the default NetConfig (f32, no TF32) on mesh (1,1,1): one pjit AdamW
+    # step and one forward on the card against the same functions on the
+    # host's copies of the same tensors. Loss and output: 1e-5 relative
+    # (other summation orders); parameters: 1e-6 absolute but for entries
+    # whose gradient is within rounding of 0 (Adam's first update is
+    # lr·sign(g): at most 2·lr off, on at most 0.5% of a leaf); moments
+    # 1e-5 relative plus 1e-7 (mu) or 1e-12 (nu) absolute
+    from kubeoperator_tpu_torch.parallel.mesh import MeshSpec
+    from kubeoperator_tpu_torch.parallel.multislice import initialize_from_env
+    from kubeoperator_tpu_torch.workloads import partition, serve, step
+
+    initialize_from_env()
+    mesh = MeshSpec.parse("data=1,fsdp=1,tp=1").build("cuda")
+    step_fn, specs, used = step.make_train_step(mesh)
+    assert used == "pjit"
+    host = step.build_host_state()
+    shard, _ = partition.make_shard_and_gather_fns(mesh, specs)
+    x = step.build_batch(mesh)
+    loss, new = step_fn(shard(host), x)
+    host_loss, host_new = step_fn(host, x.cpu())
+    torch.testing.assert_close(loss.cpu(), host_loss, rtol=1e-5, atol=0)
+    got = dict(partition.tree_paths(new))
+    for path, want in partition.tree_paths(host_new):
+        have = got[path].cpu()
+        if path.startswith("params/") and want.dim():
+            off = (have - want).abs()
+            assert (off > 1e-6).float().mean() <= 5e-3, path
+            assert off.max() <= 2 * step.ADAMW_LR, path
+        elif "/mu/" in path or "/nu/" in path:
+            atol = 1e-7 if "/mu/" in path else 1e-12
+            torch.testing.assert_close(have, want, rtol=1e-5, atol=atol)
+        else:
+            assert torch.equal(have, want), path
+    fwd, pspecs, _ = serve.make_forward(mesh)
+    pshard, _ = partition.make_shard_and_gather_fns(mesh, pspecs)
+    y = fwd(pshard(host["params"]), x)
+    torch.testing.assert_close(y.cpu(), fwd(host["params"], x.cpu()),
+                               rtol=1e-5, atol=1e-6)

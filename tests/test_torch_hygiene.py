@@ -1,6 +1,6 @@
-"""Import hygiene of the port: it never imports JAX, `ml_dtypes` (which the
-card's machine lacks) or the JAX package, and its kernel sources (K1, K2)
-are built for sm_90a."""
+"""Import hygiene of the port: it never imports JAX, `optax`, `ml_dtypes`
+(which the card's machine lacks) or the JAX package, and its kernel sources
+(K1, K2) are built for sm_90a."""
 
 import ast
 import os
@@ -31,7 +31,8 @@ def _imported_modules(path: Path) -> set[str]:
 def test_no_jax_or_reference_import(path):
     for name in _imported_modules(path):
         top = name.split(".")[0]
-        assert top not in ("jax", "jaxlib", "ml_dtypes", "kubeoperator_tpu"), \
+        assert top not in ("jax", "jaxlib", "optax", "ml_dtypes",
+                           "kubeoperator_tpu"), \
             f"{path.relative_to(ROOT)} imports {name}"
 
 
@@ -39,9 +40,12 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, kubeoperator_tpu_torch, kubeoperator_tpu_torch.ops, "
             "kubeoperator_tpu_torch.cli.koctl, kubeoperator_tpu_torch.weights, "
             "kubeoperator_tpu_torch.ops.psum_smoke, "
-            "kubeoperator_tpu_torch.parallel.validation_net, chip_smoke; "
+            "kubeoperator_tpu_torch.parallel.validation_net, "
+            "kubeoperator_tpu_torch.workloads.harness, "
+            "kubeoperator_tpu_torch.workloads.checkpoint, "
+            "kubeoperator_tpu_torch.workloads.serve, chip_smoke; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'ml_dtypes', 'kubeoperator_tpu')]; print(bad); "
+            "('jax', 'optax', 'ml_dtypes', 'kubeoperator_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

@@ -147,9 +147,12 @@ def spawn_ranks(n: int, script: str, timeout: float = 180) -> list[dict]:
         port = s.getsockname()[1]
     procs = []
     for rank in range(n):
+        # one compute thread a rank: n ranks of tiny shapes need no more,
+        # and the suite's other workers share the host's cores
         env = dict(os.environ, PYTHONPATH=ROOT,
                    KO_TPU_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
-                   KO_TPU_NUM_PROCESSES=str(n), KO_TPU_PROCESS_ID=str(rank))
+                   KO_TPU_NUM_PROCESSES=str(n), KO_TPU_PROCESS_ID=str(rank),
+                   OMP_NUM_THREADS="1")
         env.pop("KO_TPU_TRAIN_STEPS", None)
         procs.append(subprocess.Popen(
             [sys.executable, "-c", script], cwd=ROOT, env=env,
