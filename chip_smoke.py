@@ -63,6 +63,26 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      harness` in a subprocess; and at the default (f32) config the resume
      drill: 6 steps against 3 steps + save + restore + 3 steps, equal
      losses, which are the reference's
+ 14. the bench twin in-process on one card (`kubeoperator_tpu_torch.bench.
+     main`), K1's count from 0: the metric `<part>_single_chip_mxu_bf16_
+     tflops`, every `details` key of the reference's 1-device branch,
+     `dma_read_gbps` a number with K1 launched, both train parts ok, no
+     `prior_run` (the repo's records are TPU runs)
+ 15. the graft twin: `entry()`'s block (4 x 512 x 1024, bf16) on the card,
+     finite and within a few bf16 steps of the same fn in f32 on the host;
+     the block at 2 x 64 x 256 on the card equal to the host's bf16 run
+     but for at most 1% of its entries, each within one bf16 step;
+     `dryrun_multichip(1, device="cuda")` and `dryrun_multichip(4)` (4 gloo
+     ranks)
+ 16. `run_dcn_smoke()` (4 gloo processes, dcn and ici psums 3.0), then
+     Ulysses attention at world 1 on the card, causal and not: a smoke of
+     its call path, since with one rank the all-to-alls return their input
+     and it is reference attention; phase 10 holds it across two cards
+Phase 10 also runs, over its 2 processes, the bench twin's >= 2-rank
+branch (rank 0's line), Ulysses across the two cards, and then
+`dryrun_multichip(2, device="cuda")`; with 4 or more cards,
+`run_dcn_smoke(device="cuda")` (4 NCCL ranks, one a card, dcn and ici
+psums 3.0).
 The train path (phases 11-12) and the workload (phase 13) run no
 hand-written kernel: K1's and K2's counts are set to 0 before them and
 printed after them.
@@ -100,7 +120,6 @@ RING_RANKS = (2, 4, 8)
 RING_SHARD_ROWS = 3904                # bench_ring_all_gather's 16 MB shard
 RING_RAGGED_ROWS = 1001               # 1,001-row shards: ragged pieces
 RING_REPEATS = 200                    # back-to-back launches at n = 8
-NVLINK_GBPS = 450.0                   # one NVLink direction (data sheet)
 # the reference's `run_training` losses at the default NetConfig (f32, seed
 # 0) on the host, as its records round them: 6 steps on one device, 4 on
 # the two-device meshes of phase 10 (tests/test_torch_workloads.py holds
@@ -115,6 +134,31 @@ WORKLOAD_LOSSES = {
 }
 LOSS_RTOL, LOSS_ATOL = 1e-5, 1e-6
 SERVE_REQUESTS = 4          # each request draws a 201 M-value host batch
+# the reference bench's 1-device `details` keys (bench.py:114-283), every
+# one it always writes (tests/test_torch_bench.py holds them to it)
+BENCH_N1_KEYS = frozenset(
+    ["devices", "device_kind", "generation"]
+    + [f"mxu_{k}_{n}" for n in (2048, 4096, 8192) for k in ("tflops", "band")]
+    + ["mxu_headline_band", "mxu_headline_band_pct", "mxu_band_blowout",
+       "mxu_headline_protocol", "hbm_triad_gbps", "hbm_triad_band_gbps",
+       "dma_read_gbps", "hbm_datasheet_gbps", "train_smoke_steps_per_s",
+       "train_smoke_ok", "train_model_tflops_per_s", "train_mfu_pct",
+       "train_bench_ok"])
+# the graft block on the card (bf16) against the same fn on f32 copies of
+# its inputs on the host: bf16 roundings of O(1) outputs (a step is 2^-8
+# relative), so a few steps
+GRAFT_RTOL = GRAFT_ATOL = 2e-2
+# the reduced block on the card against the host's bf16 run of it: equal
+# but for f32 sums in another order that round the other way, at most 1%
+# of the entries (0.04-0.3% between the host and the JAX reference; a
+# missed rounding point or the exact gelu moves 3-15%), each within one
+# bf16 step of the inputs' scale (|x| < 4) plus 2^-7 relative
+GRAFT_REDUCED = (2, 64, 256)        # batch, seq, d_model
+GRAFT_UNEQUAL = 0.01
+GRAFT_STEP_RTOL, GRAFT_STEP_ATOL = 2 ** -7, 2 ** -6
+# Ulysses against full attention, f32 without TF32: the reference's 2e-4
+ULYSSES_TOL = 2e-4
+ULYSSES_SHAPE = (2, 256, 8, 64)     # [batch, seq per rank, heads, head dim]
 
 
 def fail(msg: str) -> None:
@@ -348,10 +392,16 @@ library_ms = ms(lambda: dist.all_gather_into_tensor(gathered, local))
 rg.raise_on_ring_error()
 import chip_smoke
 workload = chip_smoke.workload_ranks()
+from kubeoperator_tpu_torch import bench
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    bench_rc = bench.main([])
+ulysses = chip_smoke.ulysses_ranks(mesh)
 print("RANK_RESULT " + json.dumps(dict(
     rank=rank, rc=rc, report=report, diag_launches=diag_launches, smoke=smoke,
     exact=exact, kernel_ms=kernel_ms, library_ms=library_ms,
-    workload=workload)), flush=True)
+    workload=workload, bench_rc=bench_rc, bench=buf.getvalue(),
+    ulysses=ulysses)), flush=True)
 dist.barrier()
 dist.destroy_process_group()
 """
@@ -383,6 +433,38 @@ def workload_ranks() -> dict:
     return out
 
 
+def ulysses_ranks(mesh) -> dict:
+    """Ulysses attention over the ranks of the 1-D `mesh` (one card each),
+    causal and not, against reference attention on the whole arrays:
+    the largest difference of this rank's shard."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from kubeoperator_tpu_torch.ops.longcontext_check import full_f32_matmul
+    from kubeoperator_tpu_torch.parallel.longcontext import (
+        reference_attention,
+        ulysses_attention,
+    )
+
+    n, rank = dist.get_world_size(), dist.get_rank()
+    s_local = ULYSSES_SHAPE[1]
+    shape = (ULYSSES_SHAPE[0], s_local * n) + ULYSSES_SHAPE[2:]
+    rng = np.random.default_rng(0)
+    full = [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .cuda() for _ in range(3)]
+    mine = [t[:, rank * s_local:(rank + 1) * s_local].contiguous() for t in full]
+    err = {}
+    with full_f32_matmul():
+        for causal in (False, True):
+            got = ulysses_attention(*mine, mesh, axis_name=mesh.mesh_dim_names[0],
+                                    causal=causal)
+            want = reference_attention(*full, causal=causal)
+            want = want[:, rank * s_local:(rank + 1) * s_local]
+            err[f"causal={causal}"] = float((got - want).abs().max())
+    return err
+
+
 def check_workload_ranks(results: list[dict]) -> None:
     """Phase 10: both ranks' training runs are the reference's, and the
     reshard leaves rank 0 serving alone."""
@@ -408,6 +490,23 @@ def check_workload_ranks(results: list[dict]) -> None:
           f"({left['drain_reason']})", flush=True)
 
 
+def check_bench_ranks(results: list[dict], nvlink_gbps: float) -> dict:
+    """Phase 10: the bench twin's >= 2-rank line, printed by rank 0 alone,
+    with its gates passed and the headline over the card's NVLink figure."""
+    if [r["bench_rc"] for r in results] != [0, 0] or results[1]["bench"]:
+        fail(f"phase 10 bench: exit {[r['bench_rc'] for r in results]}, "
+             f"rank 1 printed {results[1]['bench']!r}")
+    line = json.loads(results[0]["bench"])
+    d = line["details"]
+    if not (line["metric"] == "psum_allreduce_busbw_gbps" and d["devices"] == 2
+            and d["psum_correct"] and d["ring_attention_correct"]
+            and d["workload_sweep_ok"] is True
+            and line["vs_baseline"] == round(line["value"] / nvlink_gbps, 3)):
+        fail(f"phase 10 bench line: {line}")
+    print("phase 10: bench over 2 cards: " + json.dumps(line), flush=True)
+    return line
+
+
 def multi_card(torch) -> dict | None:
     """Phase 10: the process-per-card form of K2 through `tpu diag` and the
     gate in 2 processes, where 2 or more cards are visible."""
@@ -415,41 +514,31 @@ def multi_card(torch) -> dict | None:
         print("phase 10: not run: 1 card visible; the process-per-card ring "
               "and the gate at 2 chips need 2 or more", flush=True)
         return None
-    import socket
+    from kubeoperator_tpu_torch.parallel.multislice import HostEnv
+    from kubeoperator_tpu_torch.utils.launch import free_port_pair, run_ranks
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print("phase 10: cards: " + "; ".join(smi.splitlines()), flush=True)
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    script = _RANK_SCRIPT.format(root=str(ROOT), rows=RING_SHARD_ROWS)
-    procs = []
-    for rank in range(2):
-        env = dict(os.environ, KO_TPU_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
-                   KO_TPU_NUM_PROCESSES="2", KO_TPU_PROCESS_ID=str(rank),
-                   KO_TPU_EXPECTED_CHIPS="2")
-        env["KO_TPU_TRAIN_STEPS"] = "2"
-        procs.append(subprocess.Popen(
-            [sys.executable, "-c", script], cwd=ROOT, env=env,
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    port = free_port_pair()
+    envs = [dict(HostEnv(coordinator_address=f"127.0.0.1:{port}",
+                         num_processes=2, process_id=rank).to_env(),
+                 KO_TPU_EXPECTED_CHIPS="2", KO_TPU_TRAIN_STEPS="2")
+            for rank in range(2)]
+    ran = run_ranks(_RANK_SCRIPT.format(root=str(ROOT), rows=RING_SHARD_ROWS),
+                    envs, timeout_s=420)
     results = []
-    try:
-        for proc in procs:
-            out, err = proc.communicate(timeout=420)
-            if proc.returncode != 0:
-                fail(f"phase 10 rank exit {proc.returncode}: {err[-3000:]}")
-            line = [ln for ln in out.splitlines()
-                    if ln.startswith("RANK_RESULT ")]
-            results.append(json.loads(line[0].split(" ", 1)[1]))
-    finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+    for rc, out, err in ran:
+        if rc != 0:
+            fail(f"phase 10 rank exit {rc}: {err[-3000:]}")
+        line = [ln for ln in out.splitlines() if ln.startswith("RANK_RESULT ")]
+        results.append(json.loads(line[0].split(" ", 1)[1]))
+    from kubeoperator_tpu_torch.parallel.topology import generation_for_device
+
+    nvlink_gbps = generation_for_device(torch.device("cuda", 0)).nvlink_gbps_per_gpu
     chunk_bytes = RING_SHARD_ROWS * 1024 * 4
-    bound_ms = chunk_bytes / (NVLINK_GBPS * 1e9) * 1e3  # (n - 1) chunks, n = 2
+    bound_ms = chunk_bytes / (nvlink_gbps * 1e9) * 1e3  # (n - 1) chunks, n = 2
     for r in results:
         rep, smoke = r["report"], r["smoke"]
         train = smoke.get("train", {})
@@ -470,7 +559,33 @@ def multi_card(torch) -> dict | None:
               f"train at mesh {train['mesh']} ok, losses {train['losses']}",
               flush=True)
     check_workload_ranks(results)
-    multi = dict(cards=smi, ranks=results, bound_ms=bound_ms)
+    bench_line = check_bench_ranks(results, nvlink_gbps)
+    for r in results:
+        if not all(e <= ULYSSES_TOL for e in r["ulysses"].values()):
+            fail(f"phase 10 rank {r['rank']} Ulysses across 2 cards: {r['ulysses']}")
+    print(f"phase 10: Ulysses across 2 cards within {ULYSSES_TOL} of full "
+          f"attention: {[r['ulysses'] for r in results]}", flush=True)
+    from kubeoperator_tpu_torch.graft_entry import dryrun_multichip
+
+    dryrun = dryrun_multichip(2, device="cuda")
+    if dryrun["devices"] != 2 or dryrun["device_type"] != "cuda":
+        fail(f"phase 10 dryrun_multichip(2, device='cuda'): {dryrun}")
+    print(f"phase 10: dryrun_multichip(2, device='cuda') {dryrun}", flush=True)
+    dcn = None
+    if torch.cuda.device_count() >= 4:
+        from kubeoperator_tpu_torch.ops.dcn_smoke import run_dcn_smoke
+
+        dcn = run_dcn_smoke(device="cuda")
+        if not (dcn["ok"] and dcn["dcn_psum"] == [3.0] and dcn["ici_psum"] == [3.0]):
+            fail(f"phase 10 run_dcn_smoke(device='cuda'): {dcn}")
+        print(f"phase 10: run_dcn_smoke(device='cuda') ok: {dcn['processes']} "
+              f"NCCL ranks, one a card, dcn psum {dcn['dcn_psum']}, ici psum "
+              f"{dcn['ici_psum']}, {dcn['wall_s']} s", flush=True)
+    else:
+        print("phase 10: run_dcn_smoke(device='cuda') not run: it needs 4 "
+              "cards", flush=True)
+    multi = dict(cards=smi, ranks=results, bound_ms=bound_ms, bench=bench_line,
+                 dryrun=dryrun, dcn=dcn)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_multi.json").write_text(json.dumps(multi, indent=2))
@@ -731,6 +846,140 @@ def workload_bench(gen, smi: str) -> dict:
                 resume_drill=drill, nvidia_smi=smi)
 
 
+def bench_phase(gen, smi: str, dma_mod) -> dict:
+    """Phase 14: the bench twin in-process on one card, K1's count from 0:
+    the reference's 1-device line and keys, K1 launched by its read
+    stream."""
+    from kubeoperator_tpu_torch import bench
+
+    dma_mod.dma_read.launches = 0
+    t0 = time.perf_counter()
+    rc, text = capture(bench.main, [])
+    seconds = time.perf_counter() - t0
+    launches = dma_mod.dma_read.launches
+    line = json.loads(text.strip().splitlines()[-1])
+    d = line.get("details", {})
+    missing = sorted(BENCH_N1_KEYS - set(d))
+    if rc != 0 or line["metric"] != f"{gen.name}_single_chip_mxu_bf16_tflops":
+        fail(f"bench twin exit {rc}: {line}")
+    if missing:
+        fail(f"bench twin details lack the reference's {missing}")
+    if not (isinstance(d["dma_read_gbps"], float) and launches > 0):
+        fail(f"bench twin dma_read_gbps {d['dma_read_gbps']!r}, K1 launches "
+             f"{launches}")
+    if d["train_smoke_ok"] is not True or d["train_bench_ok"] is not True:
+        fail(f"bench twin train parts: {d['train_smoke_ok']!r} "
+             f"{d['train_bench_ok']!r}")
+    if "prior_run" in d:
+        fail(f"bench twin compared itself with another device: {d['prior_run']}")
+    print(f"phase 14: bench twin on {smi}: {seconds:.1f} s, K1 launched "
+          f"{launches} times", flush=True)
+    return dict(line=line, k1_launches=launches, seconds=seconds,
+                nvidia_smi=smi)
+
+
+def bf16_unequal(got, want) -> tuple[float, bool]:
+    """The share of bf16 entries of `got` that are not `want`'s, and
+    whether every entry is within GRAFT_STEP_ATOL + GRAFT_STEP_RTOL|want|."""
+    import torch
+
+    within = torch.allclose(got.float(), want.float(), rtol=GRAFT_STEP_RTOL,
+                            atol=GRAFT_STEP_ATOL)
+    return float((got != want).float().mean()), within
+
+
+def graft_phase(dev) -> dict:
+    """Phase 15: the graft twin: `entry()`'s block on the card against the
+    same fn in f32 on the host, the reduced block on the card against the
+    host's bf16 run, then the dry run on one card and on 4 gloo ranks."""
+    import torch
+
+    from kubeoperator_tpu_torch import graft_entry
+
+    fn, args = graft_entry.entry()
+    if not all(a.device.type == "cuda" for a in args):
+        fail(f"entry() put its args on {[a.device for a in args]}")
+    host = tuple(a.cpu() for a in args)
+    t0 = time.perf_counter()
+    got = fn(*args)
+    torch.cuda.synchronize()
+    want = fn(*(a.float() for a in host))
+    got = got.cpu()
+    err = float((got.float() - want).abs().max())
+    if not (bool(torch.isfinite(got).all()) and tuple(got.shape) == tuple(want.shape)
+            and torch.allclose(got.float(), want, rtol=GRAFT_RTOL, atol=GRAFT_ATOL)):
+        fail(f"graft block on the card: max |card - host f32| = {err}")
+    full_unequal, _ = bf16_unequal(got, fn(*host))
+    small = graft_entry.block_inputs(*GRAFT_REDUCED)
+    unequal, within = bf16_unequal(fn(*(a.to(dev) for a in small)).cpu(),
+                                   fn(*small))
+    if unequal > GRAFT_UNEQUAL or not within:
+        fail(f"graft block {GRAFT_REDUCED} on the card against the host's bf16 "
+             f"run: {unequal:.5f} of the entries differ, all within one step "
+             f"{within}")
+    print(f"phase 15: graft block {tuple(got.shape)} bf16 on the card within "
+          f"rtol={GRAFT_RTOL} atol={GRAFT_ATOL} of the host's f32 run (max "
+          f"|diff| {err:.4g}), {full_unequal:.5f} of its entries unlike the "
+          f"host's bf16 run; block {GRAFT_REDUCED}: {unequal:.5f} unlike the "
+          f"host's (limit {GRAFT_UNEQUAL}), {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    runs = {}
+    for n, device in ((1, "cuda"), (4, "cpu")):
+        t0 = time.perf_counter()
+        rep = graft_entry.dryrun_multichip(n, device=device)
+        if rep["devices"] != n or rep["device_type"] != device:
+            fail(f"dryrun_multichip({n}, {device!r}): {rep}")
+        runs[f"{n}/{device}"] = dict(rep, seconds=time.perf_counter() - t0)
+        print(f"phase 15: dryrun_multichip({n}, device={device!r}) {rep} "
+              f"{runs[f'{n}/{device}']['seconds']:.1f} s", flush=True)
+    return dict(block_max_abs_err=err, block_bf16_unequal=full_unequal,
+                reduced_bf16_unequal=unequal, dryrun=runs)
+
+
+def dcn_ulysses_phase(dev) -> dict:
+    """Phase 16: the multislice smoke (4 gloo processes), then Ulysses at
+    world 1 on the card, causal and not: a smoke of its call path (one
+    rank's all-to-alls return their input, so it is reference attention;
+    phase 10 holds it across two cards)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from kubeoperator_tpu_torch.ops.dcn_smoke import run_dcn_smoke
+    from kubeoperator_tpu_torch.ops.longcontext_check import full_f32_matmul
+    from kubeoperator_tpu_torch.parallel.longcontext import (
+        reference_attention,
+        ulysses_attention,
+    )
+    from kubeoperator_tpu_torch.parallel.mesh import flat_axis_mesh
+    from kubeoperator_tpu_torch.parallel.multislice import initialize_from_env
+
+    dcn = run_dcn_smoke()
+    if not (dcn["ok"] and dcn["dcn_psum"] == [3.0] and dcn["ici_psum"] == [3.0]):
+        fail(f"run_dcn_smoke: {dcn}")
+    print(f"phase 16: run_dcn_smoke ok: {dcn['processes']} processes, dcn "
+          f"psum {dcn['dcn_psum']}, ici psum {dcn['ici_psum']}, "
+          f"{dcn['wall_s']} s", flush=True)
+    initialize_from_env(dev)
+    mesh = flat_axis_mesh("sp")
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal(ULYSSES_SHAPE)
+                                .astype(np.float32)).to(dev) for _ in range(3))
+    err = {}
+    with full_f32_matmul():
+        for causal in (False, True):
+            got = ulysses_attention(q, k, v, mesh, causal=causal)
+            want = reference_attention(q, k, v, causal=causal)
+            err[f"causal={causal}"] = float((got - want).abs().max())
+    if not all(e <= ULYSSES_TOL for e in err.values()):
+        fail(f"Ulysses at world 1 on the card: {err}")
+    print(f"phase 16: Ulysses at world 1 on the card {ULYSSES_SHAPE} (a smoke: "
+          f"one rank's all-to-alls are the identity) within {ULYSSES_TOL} of "
+          f"full attention: {err}", flush=True)
+    dist.destroy_process_group()
+    return dict(dcn=dcn, ulysses_max_abs_err=err)
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
@@ -959,13 +1208,22 @@ def main(argv: list[str] | None = None) -> int:
           f"neither)", flush=True)
     if dist.is_initialized():
         dist.destroy_process_group()
+
+    # 14-16. the bench twin (K1's count from 0), the graft twin, the
+    # multislice smoke and Ulysses
+    bench_rec = bench_phase(gen, smi, dma_mod)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    graft = graft_phase(dev)
+    dcn_ulysses = dcn_ulysses_phase(dev)
     n8 = ring_times["times"][8]
     forms = ["one card, virtual ranks"] + (["process per card"] if multi else [])
     kernels = {"kernels": [{
         "name": "dma_read", "route": "cuda",
         "source": "kubeoperator_tpu_torch/csrc/dma_read.cu",
         "replaces": "kubeoperator_tpu/ops/pallas_kernels.py:56",
-        "launches": diag_launches, "max_abs_err": max_abs_err,
+        "launches": diag_launches, "bench_launches": bench_rec["k1_launches"],
+        "max_abs_err": max_abs_err,
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": library_ms,
     }, {
@@ -984,7 +1242,8 @@ def main(argv: list[str] | None = None) -> int:
                   multi_device_path=path, multi_card=multi,
                   train_gate=gate_train, train_bench=bench_train,
                   train_path_launches=train_launches, workload=workload,
-                  workload_launches=workload_launches,
+                  workload_launches=workload_launches, bench=bench_rec,
+                  graft=graft, dcn_ulysses=dcn_ulysses,
                   seconds=time.perf_counter() - t_start)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

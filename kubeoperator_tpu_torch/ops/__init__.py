@@ -16,6 +16,8 @@
   psum_smoke.py   the cluster smoke test: correctness, ring attention at
                   2+ ranks, psum bus-bandwidth, the train smoke when
                   KO_TPU_TRAIN_STEPS>0, emitting KO_TPU_SMOKE_RESULT
+  dcn_smoke.py    the multislice smoke: one process per host through the
+                  env contract, a psum across slices and one inside a slice
 
 Only what is ported is exported; see ROADMAP.md for the rest. The kernel
 wrappers themselves stay in their modules (`ops.dma_read.dma_read`,

@@ -18,7 +18,9 @@ Each backward is the transpose of its forward:
   all_gather     concatenate every rank's block along a dim; backward
                  reduce-scatters (sums) the cotangent back into blocks: the
                  gather-on-use GSPMD inserts for a weight sharded over an
-                 axis whose ranks see different data (fsdp)
+                 axis whose ranks see different data (fsdp); over an axis
+                 whose ranks see the same data (tp) each cotangent is
+                 already whole, and the backward keeps this rank's block
 
 A forward or backward issues its collectives in program order, and every
 rank of a group runs the same graph, so all ranks meet each collective in
@@ -84,15 +86,24 @@ def _reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     return out.movedim(0, dim)
 
 
+def _own_block(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    size = x.shape[dim] // dist.get_world_size(group)
+    return x.narrow(dim, dist.get_rank(group) * size, size).contiguous()
+
+
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, dim, group):
-        ctx.dim, ctx.group = dim, group
+    def forward(ctx, x, dim, group, sum_grad):
+        ctx.dim, ctx.group, ctx.sum_grad = dim, group, sum_grad
         return gather_dim(x, dim, group)
 
     @staticmethod
     def backward(ctx, g):
-        return _reduce_scatter_dim(g, ctx.dim, ctx.group), None, None
+        if ctx.sum_grad:
+            g = _reduce_scatter_dim(g, ctx.dim, ctx.group)
+        else:
+            g = _own_block(g, ctx.dim, ctx.group)
+        return g, None, None, None
 
 
 class _PPermute(torch.autograd.Function):
@@ -163,10 +174,13 @@ def replicate(x: torch.Tensor, group) -> torch.Tensor:
     return x if _single(group) else _Replicate.apply(x, group)
 
 
-def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
-    """All-gather along `dim` over `group`; the backward sums the cotangent
-    over the group and hands each rank its block (reduce-scatter)."""
-    return x if _single(group) else _AllGather.apply(x, dim, group)
+def all_gather(x: torch.Tensor, dim: int, group,
+               sum_grad: bool = True) -> torch.Tensor:
+    """All-gather along `dim` over `group`. The backward hands each rank its
+    block of the cotangent: summed over the group (reduce-scatter) when its
+    ranks see different data, as is (`sum_grad=False`) when they see the
+    same data and each rank's cotangent is already the whole one."""
+    return x if _single(group) else _AllGather.apply(x, dim, group, sum_grad)
 
 
 def axes_group(mesh: DeviceMesh, axes: tuple[str, ...]):

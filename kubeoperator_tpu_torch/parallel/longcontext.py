@@ -1,8 +1,9 @@
-"""Ring attention: exact attention over a sequence sharded across ranks.
+"""Exact attention over a sequence sharded across ranks: ring and Ulysses.
 
-Counterpart of `reference_attention`, `ring_attention_local` and
-`ring_attention` in `kubeoperator_tpu/parallel/longcontext.py`, in the same
-[batch, seq, heads, dim] layout. Each rank holds a sequence shard; K/V
+Counterpart of `reference_attention`, `ring_attention_local`,
+`ring_attention`, `seq_to_heads`, `heads_to_seq`, `ulysses_attention_local`
+and `ulysses_attention` in `kubeoperator_tpu/parallel/longcontext.py`, in
+the same [batch, seq, heads, dim] layout. Each rank holds a sequence shard; K/V
 blocks rotate to the right neighbour (`parallel/comm.py::ppermute`) while an
 online-softmax carry (o, m, l) in float32 keeps the result exact. The
 reference rotates n times; the last rotation feeds nothing, so the port
@@ -25,8 +26,9 @@ A float32 product, and so that gradient, needs
 default), which `ops/longcontext_check.py` also sets for its exactness
 check.
 
-Ulysses all-to-all attention (the reference's `seq_to_heads` ...
-`ulysses_attention`) is not ported yet (ROADMAP.md A3).
+Ulysses trades the sequence shard for a head shard with one all-to-all
+(`parallel/comm.py::all_to_all`, which has its transpose as backward), runs
+full attention over the whole sequence for its heads, and trades back.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
-from kubeoperator_tpu_torch.parallel.comm import ppermute
+from kubeoperator_tpu_torch.parallel.comm import all_to_all, ppermute
 
 _NEG = -1e30  # finite -inf stand-in: masked logits underflow exp() to 0.0
 
@@ -139,3 +141,45 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     group = mesh.get_group(axis_name)
     return ring_attention_local(q, k, v, group, dist.get_world_size(group),
                                 causal=causal)
+
+
+def seq_to_heads(x: torch.Tensor, group) -> torch.Tensor:
+    """Ulysses reshard over `group` (n ranks): [b, seq/n, H, d] -> [b, seq,
+    H/n, d]. Head block j goes to rank j; the received sequence blocks are
+    joined in rank order. Heads must divide by n."""
+    n = dist.get_world_size(group)
+    b, s, h, d = x.shape
+    parts = x.reshape(b, s, n, h // n, d).permute(2, 0, 1, 3, 4)
+    got = all_to_all(parts, group)                 # [src rank, b, s, H/n, d]
+    return got.permute(1, 0, 2, 3, 4).reshape(b, n * s, h // n, d)
+
+
+def heads_to_seq(x: torch.Tensor, group) -> torch.Tensor:
+    """Inverse Ulysses reshard: [b, seq, H/n, d] -> [b, seq/n, H, d]."""
+    n = dist.get_world_size(group)
+    b, s, h, d = x.shape
+    parts = x.reshape(b, n, s // n, h, d).permute(1, 0, 2, 3, 4)
+    got = all_to_all(parts, group)                 # [src rank, b, s/n, H/n, d]
+    return got.permute(1, 2, 0, 3, 4).reshape(b, s // n, n * h, d)
+
+
+def ulysses_attention_local(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            group, causal: bool = False) -> torch.Tensor:
+    """This rank's body of Ulysses attention over `group`: reshard to heads,
+    full attention over the whole sequence for this rank's heads, reshard
+    back. Exact: one all-to-all for each input and one for the output."""
+    qh, kh, vh = (seq_to_heads(t, group) for t in (q, k, v))
+    return heads_to_seq(reference_attention(qh, kh, vh, causal=causal), group)
+
+
+def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      mesh: DeviceMesh, axis_name: str = "sp",
+                      causal: bool = False) -> torch.Tensor:
+    """Sharded Ulysses entry point (the contract of `ring_attention`)."""
+    group = mesh.get_group(axis_name)
+    n = dist.get_world_size(group)
+    if q.shape[2] % n:
+        raise ValueError(
+            f"{q.shape[2]} heads not divisible by axis {axis_name!r} "
+            f"size {n}")
+    return ulysses_attention_local(q, k, v, group, causal=causal)

@@ -1,14 +1,13 @@
 """Device meshes over the process group.
 
-Counterpart of `MeshSpec`, `format_axes`, `build_mesh` and `flat_axis_mesh`
-in `kubeoperator_tpu/parallel/mesh.py`. One process drives one card, so a
+Counterpart of `MeshSpec`, `format_axes`, `build_mesh`, `mesh_for_topology`
+and `flat_axis_mesh` in `kubeoperator_tpu/parallel/mesh.py`. One process drives one card, so a
 mesh is a `torch.distributed.device_mesh.DeviceMesh` over ranks of the
 default group (set up by `parallel/multislice.py::initialize_from_env`):
 all of them, or a list of them, as the reference builds meshes over a
 prefix of its devices. Building a mesh creates its process groups, which
 every rank of the default group takes part in; a rank outside the mesh
 then sits out whatever runs on it (`in_mesh`).
-`mesh_for_topology` is not ported: no path of the port needs it yet.
 """
 
 from __future__ import annotations
@@ -21,6 +20,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
+from kubeoperator_tpu_torch.parallel.topology import SliceTopology
 from kubeoperator_tpu_torch.utils.errors import TopologyError
 
 
@@ -168,6 +168,44 @@ def build_mesh(
                                 mesh_dim_names=tuple(axis_names))
     layout = torch.tensor(list(ranks), dtype=torch.int).view(tuple(axis_shape))
     return DeviceMesh(device_type, layout, mesh_dim_names=tuple(axis_names))
+
+
+def topology_axes(topo: SliceTopology, axis_names: Sequence[str] | None = None
+                  ) -> tuple[list[str], list[int]]:
+    """(axis names, axis lengths) of the mesh that mirrors the slice's
+    physical ICI mesh: ``ici_i`` per ICI axis, and for a multislice a
+    leading ``dcn`` axis with one entry per slice, so cross-slice traffic
+    is explicitly on the slow axis."""
+    shape: list[int] = list(topo.ici_mesh)
+    if axis_names is None:
+        axis_names = [f"ici_{i}" for i in range(len(shape))]
+        if topo.is_multislice:
+            axis_names = ["dcn"] + list(axis_names)
+    axis_names = list(axis_names)
+    if topo.is_multislice:
+        shape = [topo.num_slices] + shape
+    if len(axis_names) != len(shape):
+        raise TopologyError(
+            f"{len(shape)} mesh axes but {len(axis_names)} names given")
+    return axis_names, shape
+
+
+def mesh_for_topology(topo: SliceTopology,
+                      axis_names: Sequence[str] | None = None,
+                      device_type: str | None = None) -> DeviceMesh:
+    """`topology_axes`'s mesh over every rank of the default group, whose
+    size must be the topology's device count."""
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "no process group: call parallel.multislice.initialize_from_env "
+            "first")
+    found = dist.get_world_size()
+    if found != topo.device_count:
+        raise TopologyError(
+            f"topology {topo.accelerator_type} x{topo.num_slices} expects "
+            f"{topo.device_count} devices, found {found}")
+    names, shape = topology_axes(topo, axis_names)
+    return build_mesh(names, shape, device_type)
 
 
 def flat_axis_mesh(name: str = "devices",

@@ -262,7 +262,7 @@ def main(argv: list[str] | None = None) -> int:
     gen = generation_for_device(dev)
     report = run_sweep(
         peak_tflops_per_chip=gen.bf16_tflops_per_chip if gen else None,
-        ici_envelope_gbps=2.0 * gen.nvlink_gbps_per_link if gen else None,
+        ici_envelope_gbps=gen.nvlink_gbps_per_gpu if gen else None,
     )
     print("KO_TPU_WORKLOAD_RESULT " + json.dumps(report), flush=True)
     return 0 if report["ok"] else 1

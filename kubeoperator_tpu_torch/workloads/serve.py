@@ -41,6 +41,7 @@ from kubeoperator_tpu_torch.workloads.partition import (
 )
 from kubeoperator_tpu_torch.workloads.step import (
     DATA_AXES,
+    WORKLOAD_AXES,
     _forward,
     build_batch,
     build_host_params,
@@ -74,13 +75,15 @@ def compile_forward(mesh: DeviceMesh, cfg: NetConfig | None = None, specs=None,
             raise PartitionError(
                 "compile mode 'pjit' needs explicit shardings — run the "
                 "partition rules first, or use mode 'shard_map'")
-        tp = mesh.get_group("tp") if megatron_pair(specs) else None
-        groups = {a: mesh.get_group(a) for a in DATA_AXES}
+        megatron = megatron_pair(specs)
+        groups = {a: mesh.get_group(a) for a in WORKLOAD_AXES}
+        tp = groups["tp"] if megatron else None
 
         @torch.no_grad()
         def global_forward(p, xb):
             whole = gather_on_use(
-                {k: v for k, v in p.items() if k != "step"}, specs, groups)
+                {k: v for k, v in p.items() if k != "step"}, specs, groups,
+                megatron)
             return _forward(whole, xb, cfg, tp)
 
         return global_forward, "pjit"

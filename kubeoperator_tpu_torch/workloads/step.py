@@ -8,14 +8,18 @@ writes it once in global-array form and lets its compiler lay it out; the
 port runs it as explicit SPMD on each rank's blocks, in two modes with the
 reference's names:
 
-* **pjit** (when the partition rules produced a spec tree): every rank
-  holds its blocks of the TrainState. A weight cut over a data axis
-  (fsdp, or data) is all-gathered on use, and its gradient comes back
-  reduce-scattered (`parallel/comm.py::all_gather`); the w_in / w_out pair
-  cut on tp runs Megatron-style (`replicate` in, `psum` out, as the
-  validation net's FFN); a gradient is then summed over each data axis its
-  leaf is not cut on. AdamW is elementwise, so each rank updates its own
-  blocks.
+* **pjit** (when the partition rules produced a spec tree, any spec
+  tree the reference's `jax.jit` takes): every rank holds its blocks of
+  the TrainState. A weight cut over a data axis (fsdp, or data) is
+  all-gathered on use, and its gradient comes back reduce-scattered
+  (`parallel/comm.py::all_gather`); the w_in / w_out pair cut on tp alone
+  (w_in's columns, w_out's rows) runs Megatron-style (`replicate` in,
+  `psum` out, as the validation net's FFN), and any other tp cut is
+  gathered on use too, its gradient sliced back (tp ranks see the same
+  batch); a gradient is then summed over each data axis its leaf is not
+  cut on. AdamW is elementwise: each rank updates its own blocks, with
+  each Adam moment re-cut to its parameter's layout for the update and
+  back to its own after it.
 * **shard_map** (no specs): parameters replicated, the batch sharded over
   (data, fsdp), the loss and every gradient summed there. tp ranks repeat
   the same work — the documented trade of the fallback.
@@ -46,6 +50,7 @@ from kubeoperator_tpu_torch.parallel.validation_net import NetConfig, rms
 from kubeoperator_tpu_torch.weights import bf16_from_f64, local_shard, spec_axes
 from kubeoperator_tpu_torch.workloads.partition import (
     PartitionError,
+    gather_leaf,
     make_shard_and_gather_fns,
     match_partition_rules,
     replicated_specs,
@@ -321,41 +326,44 @@ def check_workload_mesh(mesh: DeviceMesh | MeshSpec, what: str) -> dict[str, int
     return sizes
 
 
+# the Megatron pair: w_in's columns and w_out's rows cut on tp
+_PAIR = {"w_in": 1, "w_out": 0}
+
+
+def _cut(spec, dim: int) -> tuple[str, ...]:
+    return spec_axes(spec[dim]) if dim < len(spec) else ()
+
+
 def megatron_pair(param_specs: dict) -> bool:
-    """Whether the params' spec tree runs the FFN Megatron-style (w_in's
-    columns and w_out's rows cut on tp); raises PartitionError for a tp cut
-    the explicit step cannot run (any other leaf or dim, or half a pair).
-    Cuts over the data axes are gathered on use wherever they fall."""
-    pair = {"w_in": 1, "w_out": 0}
-    tp_dims = {}
-    for name, spec in param_specs.items():
-        for dim, entry in enumerate(spec):
-            axes = spec_axes(entry)
-            if "tp" not in axes:
-                continue
-            if pair.get(name) != dim or axes != ("tp",):
-                raise PartitionError(
-                    f"the pjit step cuts tp only along w_in's columns and "
-                    f"w_out's rows (the Megatron pair); {name} has {spec}")
-            tp_dims[name] = dim
-    if len(tp_dims) == 1:
-        raise PartitionError(
-            f"the Megatron pair needs w_in and w_out both cut on tp, got "
-            f"{param_specs.get('w_in')} and {param_specs.get('w_out')}")
-    return bool(tp_dims)
+    """Whether the params' spec tree runs the FFN Megatron-style: w_in's
+    columns and w_out's rows cut on tp alone."""
+    return all(_cut(param_specs[name], dim) == ("tp",)
+               for name, dim in _PAIR.items())
 
 
-def gather_on_use(p: dict, param_specs: dict, groups: dict) -> dict:
-    """Whole weights from this rank's blocks: every dim cut over a data
-    axis all-gathered (minor axis first); tp cuts stay local."""
+def gather_on_use(p: dict, param_specs: dict, groups: dict,
+                  megatron: bool) -> dict:
+    """Whole weights from this rank's blocks: every cut dim all-gathered
+    over its axes, minor axis first, except the Megatron pair's tp cuts
+    when `megatron`. A data axis's gather sums the cotangent in backward
+    (its ranks see different batches); a tp gather keeps this rank's block
+    of it (tp ranks see the same batch, so each has the whole gradient)."""
     out = {}
     for name, w in p.items():
         for dim, entry in enumerate(param_specs[name]):
             for axis in reversed(spec_axes(entry)):
-                if axis != "tp":
-                    w = all_gather(w, dim, groups[axis])
+                if axis == "tp" and megatron and _PAIR.get(name) == dim:
+                    continue
+                w = all_gather(w, dim, groups[axis], sum_grad=axis != "tp")
         out[name] = w
     return out
+
+
+def relayout(t: torch.Tensor, src, dst, mesh: DeviceMesh) -> torch.Tensor:
+    """This rank's block of a leaf laid out as `src`, re-cut as `dst`."""
+    if tuple(src) == tuple(dst):
+        return t
+    return local_shard(gather_leaf(t, src, mesh), dst, mesh)
 
 
 def compile_step(mesh: DeviceMesh, cfg: NetConfig | None = None, specs=None,
@@ -387,19 +395,13 @@ def compile_step(mesh: DeviceMesh, cfg: NetConfig | None = None, specs=None,
                 "compile mode 'pjit' needs explicit shardings — run the "
                 "partition rules first, or use mode 'shard_map'")
         pspecs = specs["params"]
-        adam = specs["opt"][0]
-        for k, spec in pspecs.items():
-            if adam.mu[k] != spec or adam.nu[k] != spec:
-                raise PartitionError(
-                    f"the elementwise update needs opt/0/mu/{k} and "
-                    f"opt/0/nu/{k} laid out as params/{k} ({spec}), got "
-                    f"{adam.mu[k]} and {adam.nu[k]}")
+        moment_specs = specs["opt"][0]
         megatron = megatron_pair(pspecs)
     elif mode != "shard_map":
         raise PartitionError(
             f"unknown compile mode {mode!r} (auto|pjit|shard_map)")
     else:
-        pspecs, megatron = None, False
+        pspecs, moment_specs, megatron = None, None, False
     groups = {a: mesh.get_group(a) for a in WORKLOAD_AXES}
     data_groups = [groups[a] for a in DATA_AXES if sizes[a] > 1]
     trainable = [k for k in param_shapes(cfg) if k != "step"]
@@ -415,7 +417,8 @@ def compile_step(mesh: DeviceMesh, cfg: NetConfig | None = None, specs=None,
 
     def loss_and_grads(params: dict, x: torch.Tensor):
         p = {k: params[k].detach().requires_grad_() for k in trainable}
-        whole = gather_on_use(p, pspecs, groups) if pspecs is not None else p
+        whole = (gather_on_use(p, pspecs, groups, megatron)
+                 if pspecs is not None else p)
         y = _forward(whole, x, cfg,
                      groups["tp"] if megatron else None).float()
         loss = torch.sum(y * y) / denom
@@ -435,12 +438,29 @@ def compile_step(mesh: DeviceMesh, cfg: NetConfig | None = None, specs=None,
         out["step"] = torch.zeros_like(params["step"])
         return loss, out
 
+    def lay_moments(opt: tuple, as_params: bool) -> tuple:
+        """The Adam moments re-cut to their params' layouts for the
+        elementwise update (`as_params`), or back to their own."""
+        adam = opt[0]
+        moved = []
+        for moments, own in ((adam.mu, moment_specs.mu),
+                             (adam.nu, moment_specs.nu)):
+            moved.append({k: relayout(t, *((own[k], pspecs[k]) if as_params
+                                           else (pspecs[k], own[k])), mesh)
+                          for k, t in moments.items()})
+        return _opt_state(adam.count, *moved)
+
     def step_fn(state: dict, x: torch.Tensor):
         params = state["params"]
         loss, grads = loss_and_grads(params, x)
         with torch.no_grad():
             grads = {k: grads[k] for k in params}
-            updates, new_opt = optimizer.update(grads, state["opt"], params)
+            opt = state["opt"]
+            if pspecs is not None:
+                opt = lay_moments(opt, as_params=True)
+            updates, new_opt = optimizer.update(grads, opt, params)
+            if pspecs is not None:
+                new_opt = lay_moments(new_opt, as_params=False)
             new_p = apply_updates(params, updates)
             # the counter rides outside the gradient flow; written last, so a
             # read of it waits for the whole step

@@ -1,11 +1,15 @@
 """Kernels K1 and K2 on the card against their plain versions, ring
 attention and its bf16 product's gradient on the card, one training step
 of the validation net, and one step and one forward of the tenant
-workload against the same on the host. Needs a CUDA card and nvcc; skips elsewhere. Imports neither JAX nor the JAX package, so it runs
-on a machine without them:
+workload against the same on the host, the bench twin's line, the graft
+block against the host, the dry run on one card and the DCN smoke on
+four cards. Needs a CUDA card and nvcc; skips elsewhere. Imports neither
+JAX nor the JAX package, so it runs on a machine without them:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 """
+
+import json
 
 import pytest
 import torch
@@ -237,3 +241,72 @@ def test_workload_step_and_forward_match_the_host(dev):
     y = fwd(pshard(host["params"]), x)
     torch.testing.assert_close(y.cpu(), fwd(host["params"], x.cpu()),
                                rtol=1e-5, atol=1e-6)
+
+
+def test_bench_line_on_the_card(dev, monkeypatch, capsys):
+    # the 1-rank bench on the card, cut to size: one matmul size and the
+    # BENCH_CONFIG run at the default width in bf16; the line's contract,
+    # the card's metric name, and K1 launched by its read stream
+    from kubeoperator_tpu_torch import bench
+    from kubeoperator_tpu_torch.parallel.multislice import initialize_from_env
+    from kubeoperator_tpu_torch.parallel.topology import generation_for_device
+    from kubeoperator_tpu_torch.parallel.validation_net import NetConfig
+
+    initialize_from_env()
+    monkeypatch.setattr(bench, "MXU_SWEEP", ((2048, 100),))
+    monkeypatch.setattr(bench, "BENCH_CONFIG", NetConfig(dtype="bfloat16"))
+    before = port.dma_read.launches
+    assert bench.main([]) == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    gen = generation_for_device(dev)
+    assert list(line) == ["metric", "value", "unit", "vs_baseline", "details"]
+    assert line["metric"] == f"{gen.name}_single_chip_mxu_bf16_tflops"
+    d = line["details"]
+    assert d["devices"] == 1 and d["device_kind"] == torch.cuda.get_device_name(dev)
+    assert isinstance(d["dma_read_gbps"], float) and d["dma_read_gbps"] > 0
+    assert port.dma_read.launches > before
+    assert d["train_smoke_ok"] is True and d["train_bench_ok"] is True
+    assert "prior_run" not in d
+
+
+def test_graft_block_on_the_card_matches_the_host(dev):
+    # bf16 both ways; f32 accumulation on the card (aten::bmm.dtype) and
+    # exact widening on the host: a few bf16 steps of the O(1) outputs at
+    # the full block; at a reduced block equal but for at most 1% of the
+    # entries (sums in another order rounding the other way), each within
+    # one bf16 step of the inputs' scale
+    from kubeoperator_tpu_torch import graft_entry
+
+    fn, args = graft_entry.entry()
+    assert all(a.device.type == "cuda" for a in args)
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (4, 512, 1024)
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.float().cpu(),
+                               fn(*(a.cpu() for a in args)).float(),
+                               rtol=2e-2, atol=2e-2)
+    small = graft_entry.block_inputs(2, 64, 256)
+    got, want = fn(*(a.to(dev) for a in small)).cpu(), fn(*small)
+    assert float((got != want).float().mean()) <= 0.01
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                               atol=2 ** -6)
+
+
+def test_dryrun_on_one_card(dev):
+    from kubeoperator_tpu_torch import graft_entry
+
+    got = graft_entry.dryrun_multichip(1, device="cuda")
+    assert got["devices"] == 1 and got["device_type"] == "cuda"
+    assert got["loss"] == pytest.approx(0.19579065, rel=1e-5)
+
+
+def test_dcn_smoke_one_rank_a_card(dev):
+    # v5p-16 x 2 as 4 NCCL ranks, one a card: both sums 1 + 2
+    from kubeoperator_tpu_torch.ops.dcn_smoke import run_dcn_smoke
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 cards, one rank a card")
+    got = run_dcn_smoke(device="cuda")
+    assert got["ok"], got["errors"]
+    assert got["dcn_psum"] == [3.0] and got["ici_psum"] == [3.0]

@@ -43,7 +43,9 @@ def test_importing_the_port_loads_no_jax():
             "kubeoperator_tpu_torch.parallel.validation_net, "
             "kubeoperator_tpu_torch.workloads.harness, "
             "kubeoperator_tpu_torch.workloads.checkpoint, "
-            "kubeoperator_tpu_torch.workloads.serve, chip_smoke; "
+            "kubeoperator_tpu_torch.workloads.serve, "
+            "kubeoperator_tpu_torch.bench, kubeoperator_tpu_torch.graft_entry, "
+            "kubeoperator_tpu_torch.ops.dcn_smoke, chip_smoke; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'optax', 'ml_dtypes', 'kubeoperator_tpu')]; print(bad); "
             "sys.exit(1 if bad else 0)")

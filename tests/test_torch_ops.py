@@ -3,14 +3,16 @@ host: result keys, the triad chain's values, the bus factors, and the
 collectives at world size 1 (in process) and 2 (gloo ranks in separate
 processes, bootstrapped through the KO_TPU_* env contract), with the Ready
 gate and `tpu diag` run for real at 2 ranks. `spawn_ranks` is the one
-spawn helper of the port's multi-rank tests."""
+spawn helper of the port's multi-rank tests; `one_spawn_at_a_time` is the
+lock it holds, which tests that spawn ranks through the port's own entry
+points hold too."""
 
+import contextlib
 import dataclasses
+import fcntl
 import json
 import os
-import socket
-import subprocess
-import sys
+import tempfile
 
 import jax
 import jax.numpy as jnp
@@ -27,9 +29,9 @@ from kubeoperator_tpu_torch.ops import collectives as port_coll
 from kubeoperator_tpu_torch.ops import hbm as port_hbm
 from kubeoperator_tpu_torch.ops import matmul as port_matmul
 from kubeoperator_tpu_torch.parallel.mesh import flat_axis_mesh
-from kubeoperator_tpu_torch.parallel.multislice import initialize_from_env
+from kubeoperator_tpu_torch.parallel.multislice import HostEnv, initialize_from_env
+from kubeoperator_tpu_torch.utils.launch import free_port_pair, run_ranks
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OPS = ("psum", "all_gather", "reduce_scatter", "all_to_all", "ppermute")
 SHARD = 16   # elements per rank in the chain parity check
 STEPS = 3    # chained iterations
@@ -108,7 +110,8 @@ _RANK_SCRIPT = """
 import json, os, torch, torch.distributed as dist
 from kubeoperator_tpu_torch.ops import collectives as c, psum_smoke
 from kubeoperator_tpu_torch.parallel.mesh import flat_axis_mesh
-from kubeoperator_tpu_torch.parallel.multislice import initialize_from_env
+from kubeoperator_tpu_torch.parallel.multislice import HostEnv, initialize_from_env
+from kubeoperator_tpu_torch.utils.launch import free_port_pair, run_ranks
 initialize_from_env("cpu")
 rank, n = dist.get_rank(), dist.get_world_size()
 mesh = flat_axis_mesh()
@@ -137,38 +140,42 @@ os._exit(0)
 """
 
 
+@contextlib.contextmanager
+def one_spawn_at_a_time():
+    """Hold a host-wide file lock for the life of one multi-rank spawn, so
+    that the suite's parallel workers start one set of rank processes at a
+    time. Ranks started side by side oversubscribe the host's cores, and
+    timing-sensitive tests elsewhere in the suite (the phase-DAG budget in
+    tests/test_static_gate.py) lose their margin under that load."""
+    path = os.path.join(tempfile.gettempdir(), "kubeoperator_tpu_torch-ranks.lock")
+    with open(path, "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
 def spawn_ranks(n: int, script: str, timeout: float = 180) -> list[dict]:
     """The RANK_RESULT dicts that `script` prints in n gloo ranks (n <= 4),
-    one process each, joined through KO_TPU_COORDINATOR_ADDRESS/
-    NUM_PROCESSES/PROCESS_ID; sorted by rank."""
+    one process each, joined through the host env contract
+    (`HostEnv.to_env`, started by `utils/launch.py::run_ranks`); sorted by
+    rank. One spawn runs at a time (`one_spawn_at_a_time`)."""
     assert n <= 4, "tier-1 gloo tests stay at 4 ranks or fewer"
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    procs = []
-    for rank in range(n):
+    with one_spawn_at_a_time():
+        port = free_port_pair()
         # one compute thread a rank: n ranks of tiny shapes need no more,
         # and the suite's other workers share the host's cores
-        env = dict(os.environ, PYTHONPATH=ROOT,
-                   KO_TPU_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
-                   KO_TPU_NUM_PROCESSES=str(n), KO_TPU_PROCESS_ID=str(rank),
-                   OMP_NUM_THREADS="1")
-        env.pop("KO_TPU_TRAIN_STEPS", None)
-        procs.append(subprocess.Popen(
-            [sys.executable, "-c", script], cwd=ROOT, env=env,
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        envs = [dict(HostEnv(coordinator_address=f"127.0.0.1:{port}",
+                             num_processes=n, process_id=rank).to_env(),
+                     OMP_NUM_THREADS="1", KO_TPU_TRAIN_STEPS=None)
+                for rank in range(n)]
+        ran = run_ranks(script, envs, timeout)
     results = []
-    try:
-        for proc in procs:
-            out, err = proc.communicate(timeout=timeout)
-            assert proc.returncode == 0, err[-2000:]
-            line = [ln for ln in out.splitlines() if ln.startswith("RANK_RESULT ")]
-            results.append(json.loads(line[0].split(" ", 1)[1]))
-    finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+    for rc, out, err in ran:
+        assert rc == 0, err[-2000:]
+        line = [ln for ln in out.splitlines() if ln.startswith("RANK_RESULT ")]
+        results.append(json.loads(line[0].split(" ", 1)[1]))
     return sorted(results, key=lambda r: r["rank"])
 
 

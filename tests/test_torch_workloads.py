@@ -4,8 +4,9 @@ host: the partition-rule engine (tree paths, `match_partition_rules`,
 `optax.adamw`, the step's `PartitionError` cases, `run_training` at world
 1 in both modes, and at 4 gloo ranks (one module-scoped spawn) on meshes
 (data, fsdp, tp) = (4,1,1), (1,4,1), (1,1,4), (2,2,1), (1,2,2) in both
-modes plus the scaling sweep over subset meshes, against JAX on virtual
-devices of the same shapes.
+modes, the pjit step on layouts outside the plain Megatron pair (`LAYOUTS`)
+on (1,1,4) and (1,2,2), and the scaling sweep over subset meshes, against
+JAX on virtual devices of the same shapes.
 
 Tolerances, and why:
 - AdamW alone, bf16: bit for bit (each bf16 operation rounds in both).
@@ -294,24 +295,6 @@ def test_partition_errors_match_reference():
     assert ps.compile_step(mesh, specs=None)[1] == "shard_map"
 
 
-@pytest.mark.parametrize("rules", [
-    [(r"wqkv$", ("tp", None)), (r".*", ())],
-    [(r"w_in$", (None, "tp")), (r".*", ())],
-    [(r"w_in$", (None, ("fsdp", "tp"))), (r"w_out$", ("tp", None)), (r".*", ())],
-], ids=["tp_on_wqkv", "half_pair", "tp_in_a_group"])
-def test_pjit_refuses_tp_cuts_outside_the_megatron_pair(rules):
-    # the explicit step runs tp only as the Megatron pair; the reference's
-    # compiler would lay these out, the port says why it does not
-    with pytest.raises(ppart.PartitionError, match="Megatron pair"):
-        ps.make_train_step(_world_one(), rules=rules, mode="pjit")
-
-
-def test_moments_must_be_laid_out_as_their_params():
-    rules = [(r"params/wqkv$", ("fsdp", None)), (r".*", ())]
-    with pytest.raises(ppart.PartitionError, match="opt/0/mu/wqkv"):
-        ps.make_train_step(_world_one(), rules=rules, mode="pjit")
-
-
 # ------------------------------------------------------- world one ----
 def _flat_host(state):
     return {p: leaf for p, leaf in jpart.tree_paths(
@@ -397,35 +380,54 @@ from kubeoperator_tpu_torch.workloads import harness, partition, step
 initialize_from_env("cpu")
 rank = dist.get_rank()
 res = {{"rank": rank, "runs": {{}}}}
+def train(key, sizes, mode, rules=None):
+    mesh = MeshSpec(axes=tuple(zip(step.WORKLOAD_AXES, sizes))).build()
+    run = harness.run_training(mesh, steps={steps}, mode=mode, rules=rules,
+                               return_state=True)
+    state = run.pop("state")
+    _, specs, _ = step.make_train_step(mesh, rules=rules, mode=mode)
+    if specs is None:
+        specs = partition.replicated_specs(state)
+    _, gather = partition.make_shard_and_gather_fns(mesh, specs)
+    host = dict(partition.tree_paths(gather(state)))
+    if rank == 0:
+        np.savez(os.path.join({out!r}, key.replace("/", "-") + ".npz"),
+                 **{{k.replace("/", "|"): v.float().numpy() if v.is_floating_point()
+                    else v.numpy() for k, v in host.items()}})
+    res["runs"][key] = {{k: v for k, v in run.items() if k != "windows"}}
 for sizes in {meshes}:
-    spec = MeshSpec(axes=tuple(zip(step.WORKLOAD_AXES, sizes)))
     for mode in {modes}:
-        mesh = spec.build()
-        run = harness.run_training(mesh, steps={steps}, mode=mode, return_state=True)
-        state = run.pop("state")
-        _, specs, _ = step.make_train_step(mesh, mode=mode)
-        if specs is None:
-            specs = partition.replicated_specs(state)
-        _, gather = partition.make_shard_and_gather_fns(mesh, specs)
-        host = dict(partition.tree_paths(gather(state)))
-        if rank == 0:
-            np.savez(os.path.join({out!r}, f"{{sizes}}-{{mode}}.npz"),
-                     **{{k.replace("/", "|"): v.float().numpy() if v.is_floating_point()
-                        else v.numpy() for k, v in host.items()}})
-        res["runs"][f"{{sizes}}/{{mode}}"] = {{k: v for k, v in run.items()
-                                               if k != "windows"}}
+        train(f"{{sizes}}/{{mode}}", sizes, mode)
+for name, rules in {layouts}.items():
+    for sizes in {layout_meshes}:
+        train(f"{{name}}/{{sizes}}", sizes, "pjit", rules)
 res["sweep"] = harness.run_sweep(steps=2)
 dist.barrier()
 print("RANK_RESULT " + json.dumps(res), flush=True)
 os._exit(0)
 """
 
+# layouts the explicit step runs outside the plain Megatron pair: tp cuts
+# on other leaves or dims (gathered on use, gradient sliced back), half a
+# pair, tp inside a group of axes, and Adam moments laid out apart from
+# their params (re-cut around the update); on two 4-rank meshes, against
+# the reference's jax.jit of the same spec tree
+LAYOUTS = {
+    "tp_on_wqkv": [(r"wqkv$", ("tp", None)), (r".*", ())],
+    "half_pair": [(r"w_in$", (None, "tp")), (r".*", ())],
+    "tp_in_a_group": [(r"w_in$", (None, ("fsdp", "tp"))),
+                      (r"w_out$", ("tp", None)), (r".*", ())],
+    "moments_apart": [(r"params/wqkv$", ("fsdp", None)), (r".*", ())],
+}
+LAYOUT_MESHES = [(1, 1, 4), (1, 2, 2)]
+
 
 @pytest.fixture(scope="module")
 def four_ranks(tmp_path_factory):
     out = tmp_path_factory.mktemp("workload_states")
     script = _RANK_SCRIPT.format(meshes=[tuple(m) for m in MESHES],
-                                 modes=MODES, steps=STEPS, out=str(out))
+                                 modes=MODES, steps=STEPS, out=str(out),
+                                 layouts=LAYOUTS, layout_meshes=LAYOUT_MESHES)
     return spawn_ranks(4, script, timeout=300), out
 
 
@@ -441,20 +443,33 @@ def jax_runs():
     return runs
 
 
-@pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("sizes", MESHES, ids=_spec)
-def test_steps_match_jax_on_four_ranks(four_ranks, jax_runs, sizes, mode):
+def _assert_ranks_match(four_ranks, key: str, ref: dict) -> None:
     ranks, out = four_ranks
-    key = f"{tuple(sizes)}/{mode}"
-    ref = jax_runs[key]
     for r in ranks:       # every rank reports the global loss
         got = r["runs"][key]
         np.testing.assert_allclose(got["losses"], ref["losses"], rtol=LOSS_RTOL)
         for k in ("mode", "devices", "mesh", "steps", "start_step", "end_step", "ok"):
             assert got[k] == ref[k], k
-    with np.load(os.path.join(out, f"{tuple(sizes)}-{mode}.npz")) as f:
+    with np.load(os.path.join(out, key.replace("/", "-") + ".npz")) as f:
         state = {k.replace("|", "/"): f[k] for k in f.files}
     assert_state_close(state, ref["state"], steps=STEPS)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("sizes", MESHES, ids=_spec)
+def test_steps_match_jax_on_four_ranks(four_ranks, jax_runs, sizes, mode):
+    key = f"{tuple(sizes)}/{mode}"
+    _assert_ranks_match(four_ranks, key, jax_runs[key])
+
+
+@pytest.mark.parametrize("sizes", LAYOUT_MESHES, ids=_spec)
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_pjit_trains_every_layout_like_jax(four_ranks, layout, sizes):
+    ref = jh.run_training(JaxMeshSpec.parse(_spec(sizes)).build(), steps=STEPS,
+                          mode="pjit", rules=_jax_rules(LAYOUTS[layout]),
+                          return_state=True)
+    ref["state"] = _flat_host(ref["state"])
+    _assert_ranks_match(four_ranks, f"{layout}/{tuple(sizes)}", ref)
 
 
 def test_sweep_over_subset_meshes_matches_jax(four_ranks):
