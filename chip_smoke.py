@@ -78,14 +78,28 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      Ulysses attention at world 1 on the card, causal and not: a smoke of
      its call path, since with one rank the all-to-alls return their input
      and it is reference attention; phase 10 holds it across two cards
+ 17. the control plane's device seams through the port's `koctl workload`
+     verbs, each a subprocess, at BENCH_CONFIG's dims in float32 (a bf16
+     TrainState does not restore in either package) on mesh (1,1,1): `train
+     --steps 4`; `train --steps 4 --drain-at 2` into a checkpoint; `train
+     --resume` of it (losses 1-2 and the resumed 3-4 must equal the first
+     run's exactly); `serve --requests 4` from the resumed checkpoint;
+     `sweep --steps 2` (its baseline's losses are the first run's first
+     two). Free disk is checked first (two 4.03 GB checkpoints); printed:
+     steps/s and model TFLOP/s, peak memory, checkpoint bytes and save and
+     restore GB/s, serve p50/p95, the phase's wall time, K1 and K2
+     launches in the verbs' processes
 Phase 10 also runs, over its 2 processes, the bench twin's >= 2-rank
 branch (rank 0's line), Ulysses across the two cards, and then
 `dryrun_multichip(2, device="cuda")`; with 4 or more cards,
 `run_dcn_smoke(device="cuda")` (4 NCCL ranks, one a card, dcn and ici
-psums 3.0).
-The train path (phases 11-12) and the workload (phase 13) run no
-hand-written kernel: K1's and K2's counts are set to 0 before them and
-printed after them.
+psums 3.0); then the callback relay's 2-rank form: `koctl workload train
+--mesh data=2` at the default config, uninterrupted, then drained at step 2
+and resumed (one rank process a card), equal losses, the reference's.
+The train path (phases 11-12), the workload (phase 13) and the verbs
+(phase 17) run no hand-written kernel: K1's and K2's counts are set to 0
+before them (read from the verbs' processes for phase 17) and printed after
+them.
 Then the kernels line (JSON) and, last, the result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 A copy of everything measured goes to chiprun_out/chip_smoke.json.
@@ -98,6 +112,7 @@ import io
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -133,6 +148,9 @@ WORKLOAD_LOSSES = {
     "data=1,fsdp=1,tp=2": [0.174233, 0.068005, 0.028816, 0.017432],
 }
 LOSS_RTOL, LOSS_ATOL = 1e-5, 1e-6
+# phase 17's TrainState at BENCH_CONFIG's dims in f32: 335,544,320
+# parameters x 3 (params, mu, nu) x 4 B, plus the step and count scalars
+CHAIN_STATE_BYTES = 335_544_320 * 3 * 4
 SERVE_REQUESTS = 4          # each request draws a 201 M-value host batch
 # the reference bench's 1-device `details` keys (bench.py:114-283), every
 # one it always writes (tests/test_torch_bench.py holds them to it)
@@ -584,12 +602,136 @@ def multi_card(torch) -> dict | None:
     else:
         print("phase 10: run_dcn_smoke(device='cuda') not run: it needs 4 "
               "cards", flush=True)
+    relay = relay_two_cards()
     multi = dict(cards=smi, ranks=results, bound_ms=bound_ms, bench=bench_line,
-                 dryrun=dryrun, dcn=dcn)
+                 dryrun=dryrun, dcn=dcn, relay=relay)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_multi.json").write_text(json.dumps(multi, indent=2))
     return multi
+
+
+def koctl_workload(*argv, phase: str, timeout: float = 600) -> dict:
+    """`python -m kubeoperator_tpu_torch.cli.koctl workload *argv --json` in
+    a subprocess: its record, whose ``ok`` must be its exit code's verdict."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "kubeoperator_tpu_torch.cli.koctl", "workload",
+         *map(str, argv), "--json"],
+        cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+    try:
+        out = json.loads(proc.stdout)
+    except ValueError:
+        fail(f"{phase}: koctl workload {' '.join(map(str, argv))} exit "
+             f"{proc.returncode}: {proc.stderr[-3000:]}")
+    if out["ok"] != (proc.returncode == 0):
+        fail(f"{phase}: koctl workload {argv[0]} exit {proc.returncode} with "
+             f"ok={out['ok']}: {proc.stderr[-2000:]}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def relay_two_cards() -> dict:
+    """Phase 10's relay half: `koctl workload train --mesh data=2` at the
+    default config, one rank process a card: uninterrupted, then drained at
+    step 2 into a checkpoint and resumed; equal losses, the reference's."""
+    spec = "data=2,fsdp=1,tp=1"
+    root = ROOT / "build" / "chip_smoke" / "relay"
+    shutil.rmtree(root, ignore_errors=True)
+    full = koctl_workload("train", "--mesh", spec, "--steps", 4, phase="phase 10")
+    drained = koctl_workload("train", "--mesh", spec, "--steps", 4, "--drain-at", 2,
+                             "--checkpoint-dir", root, phase="phase 10")
+    resumed = koctl_workload("train", "--resume", "--checkpoint-dir", root,
+                             phase="phase 10")
+    shutil.rmtree(root, ignore_errors=True)
+    losses = drained["result"]["losses"] + resumed["result"]["losses"]
+    if not (losses == full["result"]["losses"] and losses_match(losses, spec)
+            and resumed["result"]["devices"] == 2
+            and resumed["result"]["start_step"] == 2):
+        fail(f"phase 10 relay: {drained['result']['losses']} + "
+             f"{resumed['result']['losses']} against {full['result']['losses']}")
+    print(f"phase 10: koctl workload train --mesh {spec} through the relay "
+          f"(one rank process a card): drained at 2 + resumed = uninterrupted "
+          f"{losses} (the reference's); {full['seconds']:.1f} + "
+          f"{drained['seconds']:.1f} + {resumed['seconds']:.1f} s", flush=True)
+    return dict(full=full, drained=drained, resumed=resumed)
+
+
+def gbps(window: dict) -> float:
+    return window["attrs"]["bytes"] / (window["end"] - window["start"]) / 1e9
+
+
+def workload_chain(smi: str) -> dict:
+    """Phase 17: the verbs chain train -> drain -> checkpoint -> resume ->
+    serve, and the sweep, at BENCH_CONFIG's dims in f32 (module docstring)."""
+    t0 = time.perf_counter()
+    root = ROOT / "build" / "chip_smoke" / "chain"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    free = shutil.disk_usage(root).free
+    print(f"phase 17: {free / 1e9:.1f} GB free under {root} for two "
+          f"{CHAIN_STATE_BYTES / 1e9:.2f} GB checkpoints", flush=True)
+    if free < 2.2 * CHAIN_STATE_BYTES:
+        fail(f"phase 17: {free} bytes free, two checkpoints need "
+             f"{2 * CHAIN_STATE_BYTES}")
+    wide = ("--config", "bench-f32")
+    one = ("--mesh", "data=1,fsdp=1,tp=1")
+    ckpt = ("--checkpoint-dir", root)
+    try:
+        full = koctl_workload("train", "--steps", 4, *one, *wide, phase="phase 17")
+        drained = koctl_workload("train", "--steps", 4, "--drain-at", 2, *one,
+                                 *ckpt, *wide, phase="phase 17")
+        resumed = koctl_workload("train", "--resume", *ckpt, *wide,
+                                 phase="phase 17")
+        served = koctl_workload("serve", "--requests", 4, *ckpt, *wide,
+                                phase="phase 17")
+        swept = koctl_workload("sweep", "--steps", 2, *wide, phase="phase 17")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    verbs = dict(full=full, drained=drained, resumed=resumed, served=served,
+                 swept=swept)
+    run, d, r = full["result"], drained["result"], resumed["result"]
+    losses = d["losses"] + r["losses"]
+    if not (run["finite"] and losses == run["losses"] and d.get("drained")
+            and r["start_step"] == 2 and r["resumed_from"] == d["checkpoint"]["id"]):
+        fail(f"phase 17 chain: {d['losses']} + {r['losses']} is not "
+             f"{run['losses']} (start_step {r['start_step']})")
+    s = served["result"]
+    if not (served["ok"] and s["served"] == 4 and s["mode"] == "pjit"
+            and s["checkpoint_restored"] == r["checkpoint"]["id"]):
+        fail(f"phase 17 serve: {s}")
+    base = swept["result"]["rows"][0]
+    if not (swept["result"]["devices"] == 1 and len(swept["result"]["rows"]) == 1
+            and base["losses"] == run["losses"][:2]):
+        fail(f"phase 17 sweep: {swept['result']}")
+    launches = {k: sum(v["device"]["kernel_launches"][k] for v in verbs.values())
+                for k in ("dma_read", "ring_all_gather")}
+    save = next(w for w in drained["windows"] if w["name"] == "checkpoint-save")
+    restore = next(w for w in resumed["windows"]
+                   if w["name"] == "checkpoint-restore")
+    peak_gb = full["device"]["peak_memory_bytes"] / 1e9
+    seconds = time.perf_counter() - t0
+    print(f"phase 17: koctl workload train at BENCH_CONFIG dims f32 on {smi}: "
+          f"steps/s={run['steps_per_s']} model TFLOP/s={run['model_tflops_per_s']} "
+          f"MFU={run.get('mfu_pct')}% (against the bf16 peak) peak memory="
+          f"{peak_gb:.2f} GB; losses {run['losses']} (verdict ok={run['ok']})",
+          flush=True)
+    print(f"phase 17: drained at 2 + resumed {losses} = the uninterrupted "
+          f"run's exactly; checkpoint {d['checkpoint']['bytes']} bytes, save "
+          f"{gbps(save):.3f} GB/s, restore {gbps(restore):.3f} GB/s", flush=True)
+    print(f"phase 17: serve --requests 4 from the resumed checkpoint: p50="
+          f"{s['latency_p50_ms']} ms p95={s['latency_p95_ms']} ms (steady) "
+          f"steady requests/s={s['steady_requests_per_s']}; sweep --steps 2: "
+          f"baseline {base['losses']} = the first run's first two, ok="
+          f"{swept['result']['ok']}", flush=True)
+    print(f"phase 17: {seconds:.1f} s ("
+          + ", ".join(f"{k} {v['seconds']:.1f} s" for k, v in verbs.items())
+          + f"); K1 launched {launches['dma_read']} and K2 "
+          f"{launches['ring_all_gather']} times in the verbs' processes "
+          f"(they run neither)", flush=True)
+    return dict(verbs=verbs, peak_memory_gb=peak_gb, save_gbps=gbps(save),
+                restore_gbps=gbps(restore), launches=launches, seconds=seconds,
+                free_bytes=free, nvidia_smi=smi)
 
 
 def train_gate(koctl, psum_smoke) -> dict:
@@ -1216,6 +1358,14 @@ def main(argv: list[str] | None = None) -> int:
         dist.destroy_process_group()
     graft = graft_phase(dev)
     dcn_ulysses = dcn_ulysses_phase(dev)
+
+    # 17. the verbs chain in subprocesses, counts from 0 here and there
+    dma_read.launches = 0
+    ring_all_gather.launches = 0
+    torch.cuda.empty_cache()
+    chain = workload_chain(smi)
+    chain["launches_here"] = dict(dma_read=dma_read.launches,
+                                  ring_all_gather=ring_all_gather.launches)
     n8 = ring_times["times"][8]
     forms = ["one card, virtual ranks"] + (["process per card"] if multi else [])
     kernels = {"kernels": [{
@@ -1243,7 +1393,7 @@ def main(argv: list[str] | None = None) -> int:
                   train_gate=gate_train, train_bench=bench_train,
                   train_path_launches=train_launches, workload=workload,
                   workload_launches=workload_launches, bench=bench_rec,
-                  graft=graft, dcn_ulysses=dcn_ulysses,
+                  graft=graft, dcn_ulysses=dcn_ulysses, workload_chain=chain,
                   seconds=time.perf_counter() - t_start)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

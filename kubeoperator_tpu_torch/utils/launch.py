@@ -39,6 +39,50 @@ def free_port_pair() -> int:
                        "multislice coordinator contract")
 
 
+def _rank_env(extra: dict[str, str | None]) -> dict[str, str]:
+    """This process's environment with `extra` applied (a None value
+    removes its variable) and the repo on PYTHONPATH."""
+    env = dict(os.environ)
+    for key, value in extra.items():
+        if value is None:
+            env.pop(key, None)
+        else:
+            env[key] = value
+    env["PYTHONPATH"] = REPO_ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
+def start_ranks(code: str, envs: list[dict[str, str | None]], log_dir: str
+                ) -> list[subprocess.Popen]:
+    """Start `python -c code` once per env block (as `run_ranks` does) and
+    return at once; rank r's stdout and stderr go to ``rank<r>.out`` and
+    ``rank<r>.err`` in `log_dir`, so a rank never blocks on a full pipe
+    while the caller is busy. The caller owns the processes: it waits for
+    them and kills what is left (`stop_ranks`)."""
+    procs = []
+    try:
+        for rank, extra in enumerate(envs):
+            with open(os.path.join(log_dir, f"rank{rank}.out"), "w") as out, \
+                    open(os.path.join(log_dir, f"rank{rank}.err"), "w") as err:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", code], env=_rank_env(extra),
+                    cwd=REPO_ROOT, stdout=out, stderr=err,
+                    stdin=subprocess.DEVNULL))
+    except BaseException:
+        stop_ranks(procs)
+        raise
+    return procs
+
+
+def stop_ranks(procs: list[subprocess.Popen]) -> None:
+    """Kill every process still running and reap them all."""
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+    for proc in procs:
+        proc.wait()
+
+
 def run_ranks(code: str, envs: list[dict[str, str | None]], timeout_s: float
               ) -> list[tuple[int, str, str]]:
     """Run `python -c code` once per env block (added to this process's
@@ -50,23 +94,14 @@ def run_ranks(code: str, envs: list[dict[str, str | None]], timeout_s: float
     procs = []
     try:
         for extra in envs:
-            env = dict(os.environ)
-            for key, value in extra.items():
-                if value is None:
-                    env.pop(key, None)
-                else:
-                    env[key] = value
-            env["PYTHONPATH"] = REPO_ROOT + os.pathsep + env.get("PYTHONPATH", "")
             procs.append(subprocess.Popen(
-                [sys.executable, "-c", code], env=env, cwd=REPO_ROOT,
-                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+                [sys.executable, "-c", code], env=_rank_env(extra),
+                cwd=REPO_ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True))
         results = []
         for proc in procs:
             out, err = proc.communicate(timeout=timeout_s)
             results.append((proc.returncode, out, err))
         return results
     finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+        stop_ranks(procs)

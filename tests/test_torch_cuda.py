@@ -2,8 +2,8 @@
 attention and its bf16 product's gradient on the card, one training step
 of the validation net, and one step and one forward of the tenant
 workload against the same on the host, the bench twin's line, the graft
-block against the host, the dry run on one card and the DCN smoke on
-four cards. Needs a CUDA card and nvcc; skips elsewhere. Imports neither
+block against the host, the dry run on one card, the DCN smoke on four
+cards and the `koctl workload` verbs' chain. Needs a CUDA card and nvcc; skips elsewhere. Imports neither
 JAX nor the JAX package, so it runs on a machine without them:
 
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
@@ -310,3 +310,35 @@ def test_dcn_smoke_one_rank_a_card(dev):
     got = run_dcn_smoke(device="cuda")
     assert got["ok"], got["errors"]
     assert got["dcn_psum"] == [3.0] and got["ici_psum"] == [3.0]
+
+
+def test_workload_verbs_chain_on_the_card(dev, tmp_path, capsys):
+    # `koctl workload` on the card at the default config: train, train
+    # drained at step 2 into a checkpoint, its resume (the drained and
+    # resumed losses are the uninterrupted run's exactly), serve from the
+    # resumed checkpoint and the sweep; no hand-written kernel runs
+    from kubeoperator_tpu_torch.cli import koctl
+
+    # the counts are this process's: earlier tests may have launched both
+    before = {"dma_read": port.dma_read.launches,
+              "ring_all_gather": ring_gather.ring_all_gather.launches}
+
+    def verb(*argv):
+        rc = koctl.main(["workload", *argv, "--json"])
+        out = json.loads(capsys.readouterr().out)
+        assert out["ok"] == (rc == 0)
+        assert out["device"]["type"] == "cuda"
+        assert out["device"]["kernel_launches"] == before
+        return out
+
+    ckpt = ("--checkpoint-dir", str(tmp_path))
+    full = verb("train", "--steps", "4")
+    drained = verb("train", "--steps", "4", "--drain-at", "2", *ckpt)
+    resumed = verb("train", "--resume", *ckpt)
+    assert drained["result"]["losses"] + resumed["result"]["losses"] \
+        == full["result"]["losses"]
+    assert full["ok"] and full["device"]["peak_memory_bytes"] > 0
+    served = verb("serve", "--requests", "2", *ckpt)
+    assert served["ok"] and served["result"]["served"] == 2
+    swept = verb("sweep", "--steps", "2")
+    assert swept["result"]["rows"][0]["losses"] == full["result"]["losses"][:2]
