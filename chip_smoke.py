@@ -89,17 +89,38 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      steps/s and model TFLOP/s, peak memory, checkpoint bytes and save and
      restore GB/s, serve p50/p95, the phase's wall time, K1 and K2
      launches in the verbs' processes
+ 18. the device half of the chaos soaks through the port's `koctl
+     chaos-soak` verbs, each a subprocess on mesh data=1 (one card: the
+     survivor mesh is the full mesh): `--preemption --config bench-f32`
+     (BENCH_CONFIG's dims in f32): the loss scenario's degrade leg from
+     scratch and its fresh twin, equal, whose 4 losses rise at this width,
+     so the reference's verdict (finite and descending) fails its
+     "continued" check, the one check allowed to fail, with exit 1; its
+     losses are held to `BENCH_F32_LOSSES`; the notice scenario's 6 steps,
+     drained at 2 into one 4.03 GB checkpoint, resumed by the degrade leg
+     and on the full mesh (drained + resumed losses must equal the
+     uninterrupted run's exactly); then `--queue` and `--serve` at the
+     default config (the soaks' own size: a control-flow smoke, its
+     latencies launch-bound), every check held. Free disk is checked first;
+     printed: each drill's checks and wall time, the notice losses, the
+     checkpoint's bytes and save and restore GB/s, serve p50, K1 and K2
+     launches in the drills' processes; then the sweep and the checkpoint
+     rows of `perf_rows.py` on the card in this process (the CI shapes of
+     `perf_matrix.py`, K1 and K2 counted from 0 around them), whose round
+     trip must be exact; its DCN row takes one card a rank, so phase 10
+     prints it where 4 cards are visible
 Phase 10 also runs, over its 2 processes, the bench twin's >= 2-rank
 branch (rank 0's line), Ulysses across the two cards, and then
 `dryrun_multichip(2, device="cuda")`; with 4 or more cards,
-`run_dcn_smoke(device="cuda")` (4 NCCL ranks, one a card, dcn and ici
-psums 3.0); then the callback relay's 2-rank form: `koctl workload train
+`perf_rows.run_multislice("cuda")`, the DCN smoke's row (4 NCCL ranks,
+one a card, dcn and ici psums 3.0); then the callback relay's 2-rank form: `koctl workload train
 --mesh data=2` at the default config, uninterrupted, then drained at step 2
-and resumed (one rank process a card), equal losses, the reference's.
-The train path (phases 11-12), the workload (phase 13) and the verbs
-(phase 17) run no hand-written kernel: K1's and K2's counts are set to 0
-before them (read from the verbs' processes for phase 17) and printed after
-them.
+and resumed (one rank process a card), equal losses, the reference's;
+then `koctl chaos-soak --preemption --mesh data=2` (survivor data=1).
+The train path (phases 11-12), the workload (phase 13), the verbs
+(phase 17) and the drills (phase 18) run no hand-written kernel: K1's and
+K2's counts are set to 0 before them (read from the verbs' processes for
+phases 17 and 18) and printed after them.
 Then the kernels line (JSON) and, last, the result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 A copy of everything measured goes to chiprun_out/chip_smoke.json.
@@ -148,6 +169,15 @@ WORKLOAD_LOSSES = {
     "data=1,fsdp=1,tp=2": [0.174233, 0.068005, 0.028816, 0.017432],
 }
 LOSS_RTOL, LOSS_ATOL = 1e-5, 1e-6
+# the port's own f32 losses at BENCH_CONFIG's dims on an H100, seed 0, on
+# one card (phase 17's uninterrupted run; the reference's at this width are
+# not measured): they rise after AdamW's first sign step
+BENCH_F32_LOSSES = [4336.856445, 39621104.0, 32325288.0, 1965865.0]
+# the one check phase 18's full-width preemption drill fails, as the
+# reference's verdict rule fails it on those losses
+CONTINUED_ON_ONE_CARD = ("[loss] workload continued on the survivor mesh "
+                         "(the full mesh: one device loses no slice) "
+                         "(1 device)")
 # phase 17's TrainState at BENCH_CONFIG's dims in f32: 335,544,320
 # parameters x 3 (params, mu, nu) x 4 B, plus the step and count scalars
 CHAIN_STATE_BYTES = 335_544_320 * 3 * 4
@@ -591,44 +621,76 @@ def multi_card(torch) -> dict | None:
     print(f"phase 10: dryrun_multichip(2, device='cuda') {dryrun}", flush=True)
     dcn = None
     if torch.cuda.device_count() >= 4:
-        from kubeoperator_tpu_torch.ops.dcn_smoke import run_dcn_smoke
-
-        dcn = run_dcn_smoke(device="cuda")
-        if not (dcn["ok"] and dcn["dcn_psum"] == [3.0] and dcn["ici_psum"] == [3.0]):
-            fail(f"phase 10 run_dcn_smoke(device='cuda'): {dcn}")
-        print(f"phase 10: run_dcn_smoke(device='cuda') ok: {dcn['processes']} "
-              f"NCCL ranks, one a card, dcn psum {dcn['dcn_psum']}, ici psum "
-              f"{dcn['ici_psum']}, {dcn['wall_s']} s", flush=True)
+        dcn = dcn_row_on_cards()
     else:
-        print("phase 10: run_dcn_smoke(device='cuda') not run: it needs 4 "
+        print("phase 10: perf_rows.run_multislice('cuda') not run: it needs 4 "
               "cards", flush=True)
     relay = relay_two_cards()
+    drill = drill_two_cards()
     multi = dict(cards=smi, ranks=results, bound_ms=bound_ms, bench=bench_line,
-                 dryrun=dryrun, dcn=dcn, relay=relay)
+                 dryrun=dryrun, dcn=dcn, relay=relay, drill=drill)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_multi.json").write_text(json.dumps(multi, indent=2))
     return multi
 
 
-def koctl_workload(*argv, phase: str, timeout: float = 600) -> dict:
-    """`python -m kubeoperator_tpu_torch.cli.koctl workload *argv --json` in
-    a subprocess: its record, whose ``ok`` must be its exit code's verdict."""
+def koctl_json(argv: list, phase: str, timeout: float) -> dict:
+    """`python -m kubeoperator_tpu_torch.cli.koctl *argv` in a subprocess:
+    the JSON it printed, with its ``exit_code`` and ``seconds``."""
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [sys.executable, "-m", "kubeoperator_tpu_torch.cli.koctl", "workload",
-         *map(str, argv), "--json"],
+        [sys.executable, "-m", "kubeoperator_tpu_torch.cli.koctl",
+         *map(str, argv)],
         cwd=ROOT, capture_output=True, text=True, timeout=timeout)
     try:
         out = json.loads(proc.stdout)
     except ValueError:
-        fail(f"{phase}: koctl workload {' '.join(map(str, argv))} exit "
+        fail(f"{phase}: koctl {' '.join(map(str, argv))} exit "
              f"{proc.returncode}: {proc.stderr[-3000:]}")
-    if out["ok"] != (proc.returncode == 0):
-        fail(f"{phase}: koctl workload {argv[0]} exit {proc.returncode} with "
-             f"ok={out['ok']}: {proc.stderr[-2000:]}")
-    out["seconds"] = time.perf_counter() - t0
+    out.update(exit_code=proc.returncode, seconds=time.perf_counter() - t0,
+               stderr_tail=proc.stderr[-2000:])
     return out
+
+
+def koctl_workload(*argv, phase: str, timeout: float = 600) -> dict:
+    """`koctl workload *argv --json`: its record, whose ``ok`` must be its
+    exit code's verdict."""
+    out = koctl_json(["workload", *argv, "--json"], phase, timeout)
+    if out["ok"] != (out["exit_code"] == 0):
+        fail(f"{phase}: koctl workload {argv[0]} exit {out['exit_code']} with "
+             f"ok={out['ok']}: {out['stderr_tail']}")
+    return out
+
+
+def koctl_soak(which: str, *argv, phase: str, timeout: float = 600,
+               fails: tuple = ()) -> dict:
+    """`koctl chaos-soak --<which> *argv --format json`: its report, which
+    must exit 0 with every check ok, or, where `fails` names checks, exit 1
+    with exactly those not ok."""
+    out = koctl_json(["chaos-soak", f"--{which}", *argv, "--format", "json"],
+                     phase, timeout)
+    bad = [c for c in out["checks"] if not c["ok"]]
+    if out["exit_code"] != (1 if fails else 0) \
+            or [c["check"] for c in bad] != list(fails):
+        fail(f"{phase}: koctl chaos-soak --{which} exit {out['exit_code']}, "
+             f"failed checks {bad} (allowed: {list(fails)}): "
+             f"{out['stderr_tail']}")
+    return out
+
+
+def dcn_row_on_cards() -> dict:
+    """Phase 10 with 4 cards: `perf_rows.py`'s DCN row from the cards, the
+    DCN smoke with one NCCL rank a card (dcn and ici psums 3.0)."""
+    from kubeoperator_tpu_torch.perf_rows import run_multislice
+
+    dcn = run_multislice("cuda")
+    row = dcn["rows"][0]
+    if not (dcn["ok"] and row["dcn_psum"] == 3.0 and row["ici_psum"] == 3.0):
+        fail(f"phase 10 perf_rows.run_multislice('cuda'): {dcn}")
+    print(f"phase 10: perf_rows DCN row from the cards ({row['processes']} "
+          f"NCCL ranks, one a card): {json.dumps(row)}", flush=True)
+    return dcn
 
 
 def relay_two_cards() -> dict:
@@ -655,6 +717,25 @@ def relay_two_cards() -> dict:
           f"{losses} (the reference's); {full['seconds']:.1f} + "
           f"{drained['seconds']:.1f} + {resumed['seconds']:.1f} s", flush=True)
     return dict(full=full, drained=drained, resumed=resumed)
+
+
+def drill_two_cards() -> dict:
+    """Phase 10's drill: `koctl chaos-soak --preemption --mesh data=2` at the
+    default config, one rank process a card: the survivor mesh is data=1,
+    where the degrade leg re-shards from scratch and resumes the notice
+    scenario's 2-rank checkpoint."""
+    rep = koctl_soak("preemption", "--mesh", "data=2", phase="phase 10")
+    loss, notice = rep["structure"]["loss"], rep["structure"]["notice"]
+    if not (loss["shrunk_axis"] == "data"
+            and loss["degraded_mesh"] == "data=1,fsdp=1,tp=1"
+            and notice["losses"] == notice["reference"]
+            and losses_match(notice["reference"][:4], "data=2,fsdp=1,tp=1")):
+        fail(f"phase 10 drill: {rep['structure']}")
+    print(f"phase 10: koctl chaos-soak --preemption --mesh data=2 across the "
+          f"two cards: {len(rep['checks'])} checks ok, survivor "
+          f"{loss['degraded_mesh']}, notice losses {notice['losses']} = the "
+          f"uninterrupted run's; {rep['seconds']:.1f} s", flush=True)
+    return rep
 
 
 def gbps(window: dict) -> float:
@@ -732,6 +813,118 @@ def workload_chain(smi: str) -> dict:
     return dict(verbs=verbs, peak_memory_gb=peak_gb, save_gbps=gbps(save),
                 restore_gbps=gbps(restore), launches=launches, seconds=seconds,
                 free_bytes=free, nvidia_smi=smi)
+
+
+def drill_phase(smi: str) -> dict:
+    """Phase 18: the device half of the chaos soaks, `koctl chaos-soak` as
+    subprocesses on mesh data=1 (module docstring), then the port's
+    `perf_matrix.py` device rows."""
+    t0 = time.perf_counter()
+    root = ROOT / "build" / "chip_smoke" / "drills"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    free = shutil.disk_usage(root).free
+    print(f"phase 18: {free / 1e9:.1f} GB free under {root} for one "
+          f"{CHAIN_STATE_BYTES / 1e9:.2f} GB checkpoint", flush=True)
+    if free < 1.2 * CHAIN_STATE_BYTES:
+        fail(f"phase 18: {free} bytes free, the notice scenario's checkpoint "
+             f"needs {CHAIN_STATE_BYTES}")
+    one = ("--mesh", "data=1", "--work-dir", root)
+    try:
+        drills = {
+            "preemption --config bench-f32": koctl_soak(
+                "preemption", "--config", "bench-f32", *one, phase="phase 18",
+                timeout=900, fails=(CONTINUED_ON_ONE_CARD,)),
+            "queue": koctl_soak("queue", *one, phase="phase 18"),
+            "serve": koctl_soak("serve", *one, phase="phase 18"),
+        }
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    wide = drills["preemption --config bench-f32"]
+    for name, rep in drills.items():
+        print(f"phase 18: chaos-soak --{name} on {rep['mesh']}: "
+              f"{rep['seconds']:.1f} s ({rep['runtime_s']} s in the drill), "
+              f"exit {rep['exit_code']}; " + "; ".join(
+                  c["check"] + ("" if c["ok"] else " NOT OK (as the "
+                                "reference's verdict rule says)")
+                  for c in rep["checks"]), flush=True)
+    loss, notice = wide["structure"]["loss"], wide["structure"]["notice"]
+    if not (loss["shrunk_axis"] is None
+            and close_to(loss["losses"], BENCH_F32_LOSSES)
+            and loss["losses"][-1] > loss["losses"][0]
+            and notice["losses"] == notice["reference"]
+            and close_to(notice["reference"][:4], BENCH_F32_LOSSES)
+            and len(notice["losses"]) == 6 and notice["checkpoint_step"] == 2
+            and notice["checkpoint_bytes"] >= CHAIN_STATE_BYTES):
+        fail(f"phase 18 preemption: {notice}, {loss}")
+    print(f"phase 18: at BENCH_CONFIG dims f32 the loss scenario's degrade "
+          f"leg from scratch {loss['losses']} (= its fresh twin, = "
+          f"BENCH_F32_LOSSES; rising, so not ok by the reference's rule); the "
+          f"notice scenario drained at 2 + resumed {notice['losses']} against "
+          f"the uninterrupted {notice['reference']}: equal; degrade leg (one "
+          f"card: the full mesh) {notice['degraded_losses']}; peak memory "
+          f"{wide['device']['peak_memory_bytes'] / 1e9:.2f} GB", flush=True)
+    windows = wide["windows"]
+    save = next(w for w in windows if w["name"] == "checkpoint-save")
+    restores = [w for w in windows if w["name"] == "checkpoint-restore"]
+    print(f"phase 18: checkpoint {save['attrs']['bytes']} bytes on {smi}: "
+          f"save {gbps(save):.3f} GB/s, restore "
+          + ", ".join(f"{gbps(w):.3f}" for w in restores) + " GB/s", flush=True)
+    serving = {w["attrs"]["run"]: w["attrs"] for w in drills["serve"]["windows"]
+               if w["name"] == "serving"}
+    print("phase 18: serve p50 " + ", ".join(
+        f"{run} {a['latency_p50_ms']} ms" for run, a in serving.items())
+        + " (default config: a control-flow smoke, launch-bound, not a "
+        "serving latency; phase 17 serves at full width)", flush=True)
+    launches = {k: sum(r["device"]["kernel_launches"][k] for r in drills.values())
+                for k in ("dma_read", "ring_all_gather")}
+    print(f"phase 18: K1 launched {launches['dma_read']} and K2 "
+          f"{launches['ring_all_gather']} times in the drills' processes (they "
+          f"run neither)", flush=True)
+    rows, row_launches, rows_s = perf_rows_on_the_card()
+    seconds = time.perf_counter() - t0
+    print(f"phase 18: {seconds:.1f} s (the perf rows {rows_s:.1f} s)",
+          flush=True)
+    return dict(drills=drills, save_gbps=gbps(save),
+                restore_gbps=[gbps(w) for w in restores], launches=launches,
+                perf_rows=rows, perf_rows_launches=row_launches,
+                seconds=seconds, free_bytes=free, nvidia_smi=smi)
+
+
+def close_to(got: list[float], want: list[float]) -> bool:
+    return len(got) == len(want) and all(
+        math.isclose(g, w, rel_tol=LOSS_RTOL, abs_tol=LOSS_ATOL)
+        for g, w in zip(got, want))
+
+
+def perf_rows_on_the_card() -> tuple[dict, dict, float]:
+    """Phase 18's `perf_rows.py` rows on this card, in this process, K1 and
+    K2 counted from 0 around them: the sweep and the checkpoint round trip
+    (the CI shapes of `perf_matrix.py`). The DCN row takes one card a rank
+    (4 cards): phase 10 prints it where they are visible."""
+    from kubeoperator_tpu_torch import perf_rows
+    from kubeoperator_tpu_torch.ops.dma_read import dma_read
+    from kubeoperator_tpu_torch.ops.ring_gather import ring_all_gather
+
+    t0 = time.perf_counter()
+    dma_read.launches = 0
+    ring_all_gather.launches = 0
+    rows = {"workloads": perf_rows.run_workloads(),
+            "checkpoint": perf_rows.run_checkpoint()}
+    launches = dict(dma_read=dma_read.launches,
+                    ring_all_gather=ring_all_gather.launches)
+    if not (all(part["ok"] for part in rows.values()) and rows["workloads"]["rows"]
+            and rows["checkpoint"]["rows"][0]["round_trip_exact"]):
+        fail(f"phase 18: perf_rows {rows}")
+    for name, part in rows.items():
+        print(f"phase 18: perf_rows {name} (CI shapes) from the card: "
+              + json.dumps(part["rows"]), flush=True)
+    print("phase 18: perf_rows multislice not run on one card: the DCN row "
+          "takes one card a rank (4); phase 10 prints it from 4 cards, phase "
+          f"16 ran the same smoke on 4 gloo processes; K1 launched "
+          f"{launches['dma_read']} and K2 {launches['ring_all_gather']} times "
+          f"in the rows (they run neither)", flush=True)
+    return rows, launches, time.perf_counter() - t0
 
 
 def train_gate(koctl, psum_smoke) -> dict:
@@ -864,10 +1057,7 @@ def train_bench(gen, smi: str) -> dict:
 
 def losses_match(got: list[float], spec: str) -> bool:
     """`got` are the reference's first losses on mesh `spec`."""
-    want = WORKLOAD_LOSSES[spec][:len(got)]
-    return len(got) == len(want) and all(
-        math.isclose(g, w, rel_tol=LOSS_RTOL, abs_tol=LOSS_ATOL)
-        for g, w in zip(got, want))
+    return close_to(got, WORKLOAD_LOSSES[spec][:len(got)])
 
 
 def resume_drill(mesh, device_dir: Path) -> dict:
@@ -1366,6 +1556,15 @@ def main(argv: list[str] | None = None) -> int:
     chain = workload_chain(smi)
     chain["launches_here"] = dict(dma_read=dma_read.launches,
                                   ring_all_gather=ring_all_gather.launches)
+
+    # 18. the chaos soaks' device half and the perf_matrix rows, in
+    # subprocesses, counts from 0 here and there
+    dma_read.launches = 0
+    ring_all_gather.launches = 0
+    torch.cuda.empty_cache()
+    drill = drill_phase(smi)
+    drill["launches_here"] = dict(dma_read=dma_read.launches,
+                                  ring_all_gather=ring_all_gather.launches)
     n8 = ring_times["times"][8]
     forms = ["one card, virtual ranks"] + (["process per card"] if multi else [])
     kernels = {"kernels": [{
@@ -1394,7 +1593,7 @@ def main(argv: list[str] | None = None) -> int:
                   train_path_launches=train_launches, workload=workload,
                   workload_launches=workload_launches, bench=bench_rec,
                   graft=graft, dcn_ulysses=dcn_ulysses, workload_chain=chain,
-                  seconds=time.perf_counter() - t_start)
+                  drills=drill, seconds=time.perf_counter() - t_start)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=2))

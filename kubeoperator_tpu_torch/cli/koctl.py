@@ -13,6 +13,10 @@ the tenant workload verbs.
         [--slo-ms MS] [--mode MODE] [--config ...] [--cpu] [--json]
     python -m kubeoperator_tpu_torch.cli.koctl workload sweep [--steps N]
         [--config ...] [--cpu] [--json]
+    python -m kubeoperator_tpu_torch.cli.koctl chaos-soak --preemption|--queue|
+        --serve [--mesh M] [--seed N]
+        [--verify-determinism] [--format json] [--work-dir DIR] [--config ...]
+        [--cpu]
 
 Counterparts of `cmd_tpu_diag`, `tpu train-smoke` and the device work of
 `workload train|submit --kind serve|sweep` in `kubeoperator_tpu/cli/
@@ -30,6 +34,12 @@ card, its peak memory and the launches of the hand-written kernels in this
 process. The exit code is the reference's verdict: ``ok``, or ``finite`` for
 a run stopped by `--drain-at` (which plays the service's `step_hook` drain:
 this run stops after its N-th step and saves its checkpoint).
+
+`chaos-soak` runs the device half of the reference's preemption, queue and
+serving soaks (`service/drills.py`) and prints the reference's report
+(``seed``, ``checks``, ``structure``, ``runtime_s``, ``deterministic`` with
+--verify-determinism), plus the meshes, the runs' windows and the device
+block; exit 0 when every check holds.
 """
 
 from __future__ import annotations
@@ -179,20 +189,6 @@ def _visible(args, device, mesh_text: str) -> list[int]:
     return visible_devices(device, count)
 
 
-def _workload_spec(mesh_text: str, n_visible: int):
-    """The service's mesh rule: the named axes completed with size-1
-    workload axes, or every visible device on the data axis."""
-    from kubeoperator_tpu_torch.parallel.mesh import MeshSpec
-    from kubeoperator_tpu_torch.workloads.step import WORKLOAD_AXES
-
-    if not mesh_text:
-        return MeshSpec(axes=(("data", n_visible), ("fsdp", 1), ("tp", 1)))
-    spec = MeshSpec.parse(mesh_text, axis_names=WORKLOAD_AXES,
-                          n_devices=n_visible)
-    missing = tuple((a, 1) for a in WORKLOAD_AXES if a not in spec.axis_names)
-    return MeshSpec(axes=spec.axes + missing)
-
-
 def _find_checkpoint(root: str, ref: str) -> str:
     """The directory of a complete checkpoint under `root`: by id, unique
     prefix of at least 6 characters, or (no ref) the newest."""
@@ -266,7 +262,7 @@ def _emit(args, kind: str, ok: bool, message: str, fields: dict) -> int:
 
 def cmd_workload_train(args) -> int:
     """Sharded training on the mesh: `service.train`'s device work."""
-    from kubeoperator_tpu_torch.service.workload import run_training
+    from kubeoperator_tpu_torch.service.workload import run_training, workload_spec
     from kubeoperator_tpu_torch.workloads.checkpoint import save_checkpoint
     from kubeoperator_tpu_torch.workloads.partition import explain_rules
     from kubeoperator_tpu_torch.workloads.step import (
@@ -300,7 +296,7 @@ def cmd_workload_train(args) -> int:
     if not mesh_text and resume and manifest["mesh"]:
         mesh_text = ",".join(f"{a}={n}" for a, n in manifest["mesh"].items())
     visible = _visible(args, device, mesh_text)
-    spec = _workload_spec(mesh_text, len(visible))
+    spec = workload_spec(mesh_text, len(visible))
     mode = args.mode or "auto"
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -353,7 +349,7 @@ def cmd_workload_train(args) -> int:
 
 def cmd_workload_serve(args) -> int:
     """Serve a checkpoint: `service.serve`'s device work."""
-    from kubeoperator_tpu_torch.service.workload import run_serving
+    from kubeoperator_tpu_torch.service.workload import run_serving, workload_spec
 
     device = "cpu" if args.cpu else None
     dev = resolve_device(device)
@@ -366,7 +362,7 @@ def cmd_workload_serve(args) -> int:
     mesh_text = args.mesh or ",".join(
         f"{a}={n}" for a, n in manifest["mesh"].items())
     visible = _visible(args, device, mesh_text)
-    spec = _workload_spec(mesh_text, len(visible))
+    spec = workload_spec(mesh_text, len(visible))
     mode = args.mode or "auto"
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -412,6 +408,108 @@ def cmd_workload_sweep(args) -> int:
                                   "attrs": {"meshes": len(report["rows"]),
                                             "devices": report["devices"]}}],
                      "device": _device_block(dev, visible)})
+
+
+# -------------------------------------------------------- chaos soak ----
+def cmd_chaos_soak(args) -> int:
+    """The device half of `koctl chaos-soak --preemption|--queue|--serve`
+    (`service/drills.py`): one pass, or two with --verify-determinism, whose
+    structures must be equal. Exit 0 when every check holds."""
+    import shutil
+    import tempfile
+
+    from kubeoperator_tpu_torch.service.drills import DRILLS, plan
+
+    which = next(name for name in DRILLS if getattr(args, name))
+    device = "cpu" if args.cpu else None
+    dev = resolve_device(device)
+    layout = plan(args.mesh)
+    visible = _visible(args, device, str(layout.full))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.monotonic()
+    windows: list[dict] = []
+    base = tempfile.mkdtemp(prefix=f"ko-{which}-drill-",
+                            dir=args.work_dir or None)
+
+    def one_pass(name: str, keep: list | None):
+        return DRILLS[which](layout.full, _net_config(args), args.seed,
+                             device=device, visible=visible,
+                             work_dir=os.path.join(base, name), windows=keep)
+
+    try:
+        checks, structure = one_pass("pass1", windows)
+        deterministic = None
+        if args.verify_determinism:
+            checks2, structure2 = one_pass("pass2", None)
+            deterministic = (structure == structure2
+                             and [c["ok"] for c in checks]
+                             == [c["ok"] for c in checks2])
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    ok = all(c["ok"] for c in checks) and deterministic in (None, True)
+    report = {"seed": args.seed, "checks": checks, "structure": structure,
+              "runtime_s": round(time.monotonic() - t0, 3)}
+    if deterministic is not None:
+        report["deterministic"] = deterministic
+    report.update(mesh=str(layout.full), survivor_mesh=str(layout.survivor),
+                  windows=windows, device=_device_block(dev, visible))
+    if args.format == "json":
+        print(json.dumps(report, indent=2))
+        return 0 if ok else 1
+    print(f"{which} chaos-soak (device half): seed={args.seed} mesh "
+          f"{layout.full} -> survivor {layout.survivor} (shrunk "
+          f"{layout.shrunk_axis})")
+    if layout.shrunk_axis is None:
+        print("  one device: no slice can be lost, the survivor mesh is the "
+              "full mesh")
+    for c in checks:
+        mark = "ok " if c["ok"] else "FAIL"
+        print(f"  [{mark}] {c['check']}"
+              + (f" — {c['detail']}" if c["detail"] and not c["ok"] else ""))
+    if deterministic is not None:
+        print(f"  deterministic across two runs: {deterministic}")
+    print(f"  runtime {report['runtime_s']}s — " + ("OK" if ok else "FAILED"))
+    return 0 if ok else 1
+
+
+def _chaos_soak_parser(sub) -> None:
+    soak = sub.add_parser(
+        "chaos-soak", help="the device half of the preemption, queue and "
+                           "serving chaos soaks")
+    drill = soak.add_mutually_exclusive_group(required=True)
+    drill.add_argument("--preemption", action="store_true",
+                       help="a slice lost (the degrade leg from scratch on "
+                            "the survivor mesh) and a maintenance notice "
+                            "(drain, checkpoint, degrade-leg resume, full "
+                            "resume), loss parity pinned")
+    drill.add_argument("--queue", action="store_true",
+                       help="alice drained by carol's priority at step 2, "
+                            "carol and bob run, alice resumes; loss parity "
+                            "pinned")
+    drill.add_argument("--serve", action="store_true",
+                       help="a server restores sierra's checkpoint and "
+                            "re-shards onto the survivor mid-stream; tina "
+                            "drained and resumed; uma runs")
+    soak.add_argument("--mesh", default="data=2,fsdp=4", metavar="data=2,fsdp=4",
+                      help="the full mesh; the survivor mesh loses one of "
+                           "its two slices")
+    soak.add_argument("--seed", type=int, default=0,
+                      help="seeds every run of the drill (the reference "
+                           "soaks' runs use 0)")
+    soak.add_argument("--verify-determinism", action="store_true",
+                      help="run the drill twice and compare the structures")
+    soak.add_argument("--format", default="text", choices=["text", "json"])
+    soak.add_argument("--work-dir", default="", metavar="DIR",
+                      help="where the checkpoints go (removed after); "
+                           "default: the temporary directory")
+    soak.add_argument("--config", default="default",
+                      choices=["default", "bench-f32"],
+                      help="NetConfig: the default (tiny) one, or "
+                           "BENCH_CONFIG's dims in float32")
+    soak.add_argument("--cpu", action="store_true",
+                      help="run on the host instead of the card (tests)")
+    soak.set_defaults(func=cmd_chaos_soak)
 
 
 def _workload_parser(sub) -> None:
@@ -487,6 +585,7 @@ def build_parser() -> argparse.ArgumentParser:
                          help="run on the host instead of the card (tests)")
     train_p.set_defaults(func=cmd_tpu_train_smoke)
     _workload_parser(sub)
+    _chaos_soak_parser(sub)
     return parser
 
 

@@ -49,10 +49,12 @@ set to the first k of the virtual CPU devices (the reference's
 shape only), and `kubeoperator_tpu.workloads.harness.run_training`,
 `.run_sweep`, `kubeoperator_tpu.workloads.serve.run_serving` and
 `kubeoperator_tpu.workloads.checkpoint.restore_checkpoint` set to these
-functions with ``device="cpu"`` and the same k visible. One difference
-stays: a corrupt checkpoint raises the port's `CheckpointError`, which the
-slice pool's degrade leg (it catches the reference's) does not turn into a
-from-scratch run.
+functions with ``device="cpu"`` and the same k visible, and
+`kubeoperator_tpu.workloads.checkpoint.CheckpointError` set to the port's
+class: the slice pool's degrade leg imports that name when it runs and
+turns a corrupt checkpoint into a from-scratch run, as with the reference's.
+The reference's chaos soaks reach the device through the same attributes
+(`tests/test_torch_soaks.py`); `service/drills.py` is their device half.
 
 How a seam runs, by the mesh's size k:
 
@@ -155,7 +157,18 @@ def mesh_axes(mesh_like) -> MeshSpec:
     return MeshSpec(axes=tuple((str(name), int(n)) for name, n in pairs))
 
 
-def _ranks_for(spec: MeshSpec, device, visible) -> int:
+def workload_spec(mesh_text: str, n_visible: int) -> MeshSpec:
+    """The service's mesh rule: the named axes completed with size-1
+    workload axes, or every visible device on the data axis."""
+    if not mesh_text:
+        return MeshSpec(axes=(("data", n_visible), ("fsdp", 1), ("tp", 1)))
+    spec = MeshSpec.parse(mesh_text, axis_names=WORKLOAD_AXES,
+                          n_devices=n_visible)
+    missing = tuple((a, 1) for a in WORKLOAD_AXES if a not in spec.axis_names)
+    return MeshSpec(axes=spec.axes + missing)
+
+
+def ranks_for(spec: MeshSpec, device, visible) -> int:
     """The mesh's size k, refused when more than `visible` (default
     `visible_devices(device)`) devices."""
     have = len(visible if visible is not None else visible_devices(device))
@@ -266,7 +279,7 @@ def run_training(mesh_like, cfg: NetConfig | None = None, steps: int = 4,
     handed to `on_checkpoint` and back under ``"state"`` are numpy."""
     spec = mesh_axes(mesh_like)
     cfg = cfg or NetConfig()
-    k = _ranks_for(spec, device, visible)
+    k = ranks_for(spec, device, visible)
     if (return_state or on_checkpoint is not None) and cfg.dtype == "bfloat16":
         raise ValidationError(_BF16_REFUSAL)
     if state is not None:
@@ -307,7 +320,7 @@ def run_serving(mesh_like, cfg: NetConfig | None = None, params=None,
     reshard target any mesh `mesh_axes` reads."""
     spec = mesh_axes(mesh_like)
     cfg = cfg or NetConfig()
-    k = _ranks_for(spec, device, visible)
+    k = ranks_for(spec, device, visible)
     if params is not None:
         params = _on_template(params, param_shapes(cfg), "the params")
     if k > 1:

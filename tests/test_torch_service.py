@@ -20,6 +20,7 @@ requires of itself (`tests/test_queue.py`).
 """
 
 import functools
+import os
 import re
 import threading
 
@@ -73,6 +74,9 @@ def use_port(mp, k: int, **train_kw) -> None:
     mp.setattr(jserve, "run_serving", functools.partial(
         sw.run_serving, device="cpu", visible=visible))
     mp.setattr(jck, "restore_checkpoint", pck.restore_checkpoint)
+    # the slice pool's degrade leg catches the error it imports from the
+    # reference's module at call time: the port's, once the port restores
+    mp.setattr(jck, "CheckpointError", pck.CheckpointError)
 
 
 def jax_losses(spec: str, steps: int) -> list[float]:
@@ -249,6 +253,46 @@ def test_slicepool_reshard_record_matches_the_reference(tmp_path):
     want, want_spans = _reshard_record(tmp_path / "jax", port=False)
     assert sorted(got) == sorted(want) and got_spans == want_spans
     assert got["ran"] and got["ok"] and got["start_step"] == want["start_step"] == 3
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=LOSS_RTOL)
+
+
+def _corrupt_reshard_record(tmp_path, port: bool) -> tuple[dict, str]:
+    """The degrade leg over a checkpoint with one shard's bytes flipped."""
+    tmp_path.mkdir()
+    with pytest.MonkeyPatch.context() as mp:
+        (use_port if port else use_devices)(mp, 1)
+        svc = workload_stack(tmp_path)
+        try:
+            saved = svc.workloads.train(mesh="data=1", steps=3)["checkpoint"]
+            manifest = jck.verify_checkpoint(saved["dir"])
+            shard = os.path.join(saved["dir"], manifest["leaves"][0]["file"])
+            with open(shard, "r+b") as f:
+                f.seek(-4, os.SEEK_END)
+                f.write(b"\xff\xff\xff\xff")
+            op = svc.journal.open_scoped("slice-replace", message="drill",
+                                         scope="workload")
+            rec = svc.slicepool._reshard(JaxMeshSpec.parse(WORLD_ONE), op,
+                                         svc.journal)
+            names = span_names(svc, op.id)
+        finally:
+            svc.close()
+    return rec, names
+
+
+def test_a_corrupt_checkpoint_degrades_to_a_from_scratch_reshard(tmp_path):
+    # `_restore_latest` turns the restore's CheckpointError into a run
+    # from scratch at `reshard_seed` instead of failing the replacement:
+    # the port's error, injected, takes that path as the reference's does
+    got, got_spans = _corrupt_reshard_record(tmp_path / "port", port=True)
+    want, want_spans = _corrupt_reshard_record(tmp_path / "jax", port=False)
+    assert sorted(got) == sorted(want) and got_spans == want_spans
+    assert "reshard-restore" not in got_spans
+    for rec in (got, want):
+        assert rec["ran"] and rec["ok"] and "resumed_from" not in rec
+        assert rec["start_step"] == 0 and rec["seed"] == 0
+    scratch = sw.run_training(WORLD_ONE, steps=got["steps"], seed=0,
+                              device="cpu")["losses"]
+    assert got["losses"] == scratch
     np.testing.assert_allclose(got["losses"], want["losses"], rtol=LOSS_RTOL)
 
 
