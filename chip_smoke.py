@@ -51,18 +51,16 @@ Phases; any failure ends the run with a non-zero exit and no result line:
  12. the validation net at BENCH_CONFIG on one card (d_model 4096, d_ff
      32768, 8 heads, b_local 48, s_local 1024, bf16, remat none), 12
      steps as `bench.py` runs it: steps/s, model TFLOP/s, MFU against the
-     registry's bf16 peak, the losses and peak memory, then a profile of
-     2 more steps (device time by kernel, busy share); any non-finite
+     registry's bf16 peak, the losses and peak memory; any non-finite
      loss fails the run, losses that do not descend are flagged
  13. the tenant workload (`workloads/`) at BENCH_CONFIG on mesh (data=1,
      fsdp=1, tp=1): `run_training(steps=12, mode="auto")` (the pjit
-     path): steps/s, model TFLOP/s, MFU, peak memory, then a profile of 2
-     more steps; `run_serving` of the trained params (gathered to the
-     host) for 4 requests: p50/p95 and steady requests/s against the
-     forward's bf16 bound; `python -m kubeoperator_tpu_torch.workloads.
-     harness` in a subprocess; and at the default (f32) config the resume
-     drill: 6 steps against 3 steps + save + restore + 3 steps, equal
-     losses, which are the reference's
+     path): steps/s, model TFLOP/s, MFU, peak memory; `run_serving` of
+     the trained params (gathered to the host) for 4 requests: p50/p95
+     and steady requests/s against the forward's bf16 bound; `python -m
+     kubeoperator_tpu_torch.workloads.harness` in a subprocess; and at
+     the default (f32) config the resume drill: 6 steps against 3 steps
+     + save + restore + 3 steps, equal losses, which are the reference's
  14. the bench twin in-process on one card (`kubeoperator_tpu_torch.bench.
      main`), K1's count from 0: the metric `<part>_single_chip_mxu_bf16_
      tflops`, every `details` key of the reference's 1-device branch,
@@ -957,66 +955,8 @@ def train_gate(koctl, psum_smoke) -> dict:
     return dict(gate=smoke, cli=cli)
 
 
-def _device_ms(event) -> float:
-    """An averaged profiler event's own device time in ms."""
-    return event.self_device_time_total / 1e3
-
-
-def _kernel_kind(name: str) -> str:
-    """Coarse class of a CUDA kernel by its name."""
-    low = name.lower()
-    if any(k in low for k in ("nvjet", "gemm", "cutlass", "xmma")):
-        return "matmul"
-    if "copy" in low:
-        return "copy/cast"
-    if "reduce" in low or "softmax" in low:
-        return "reduction"
-    return "elementwise"
-
-
-def profile_steps(step, params, x, steps: int = 2, phase: str = "phase 12",
-                  fence=lambda p: float(p["w_head"][0, 0])) -> dict:
-    """Device time by kernel over `steps` train steps (torch.profiler), the
-    steps' wall time and the device's busy share of it. `fence` reads a
-    value that depends on the last step's update."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        w0 = time.perf_counter()
-        for _ in range(steps):
-            loss, params = step(params, x)
-        fence(params)
-        wall_ms = (time.perf_counter() - w0) * 1e3
-    kernels = [e for e in prof.key_averages() if _device_ms(e) > 0
-               and e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(_device_ms(e) for e in kernels)
-    top = sorted(kernels, key=_device_ms, reverse=True)[:12]
-    kinds: dict[str, float] = {}
-    for e in kernels:
-        kind = _kernel_kind(e.key)
-        kinds[kind] = kinds.get(kind, 0.0) + _device_ms(e)
-    rec = dict(steps=steps, wall_ms=wall_ms, device_busy_ms=busy_ms,
-               busy_share=busy_ms / wall_ms, by_kind_ms=kinds,
-               top=[dict(name=e.key[:120], ms=_device_ms(e), calls=e.count)
-                    for e in top])
-    if busy_ms == 0:
-        print(f"{phase}: the profiler saw no device time", flush=True)
-        return rec
-    print(f"{phase}: profile of {steps} steps: wall {wall_ms:.1f} ms, device "
-          f"busy {busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%); by kind: "
-          + ", ".join(f"{k} {v:.1f} ms ({100 * v / busy_ms:.1f}%)"
-                      for k, v in sorted(kinds.items(), key=lambda kv: -kv[1])),
-          flush=True)
-    for t in rec["top"]:
-        print(f"{phase}:   {t['ms']:9.2f} ms  x{t['calls']:<4} {t['name']}",
-              flush=True)
-    return rec
-
-
 def train_bench(gen, smi: str) -> dict:
-    """Phase 12: the validation net at BENCH_CONFIG on one card, 12 steps,
-    then a profile of 2 more."""
+    """Phase 12: the validation net at BENCH_CONFIG on one card, 12 steps."""
     import torch
 
     from kubeoperator_tpu_torch.ops.train_smoke import run_train_smoke
@@ -1040,19 +980,9 @@ def train_bench(gen, smi: str) -> dict:
           f"step FLOPs={step_flops:.4g} (bf16 bound {bound_s:.4f} s a step) "
           f"peak memory={peak_gb:.2f} GB; losses {res['losses']} {trend}; "
           f"{seconds:.1f} s with the host build", flush=True)
-
-    # where a step's device time goes: 2 more steps under the profiler
-    mesh = vnet.build_mesh_for(device_type="cuda")
-    params, x, _ = vnet.build_params_and_batch(mesh, cfg=cfg)
-    step = vnet.make_train_step(mesh, cfg=cfg)
-    loss, params = step(params, x)
-    torch.cuda.synchronize()
-    profile_rec = profile_steps(step, params, x)
-    del params, x, loss
     torch.cuda.empty_cache()
     return dict(result=res, peak_memory_gb=peak_gb, seconds=seconds,
-                step_flops=step_flops, bf16_bound_s=bound_s,
-                profile=profile_rec, nvidia_smi=smi)
+                step_flops=step_flops, bf16_bound_s=bound_s, nvidia_smi=smi)
 
 
 def losses_match(got: list[float], spec: str) -> bool:
@@ -1125,11 +1055,7 @@ def workload_bench(gen, smi: str) -> dict:
           f"a step) peak memory={peak_gb:.2f} GB; losses {run['losses']} {trend}; "
           f"{seconds:.1f} s with the host build", flush=True)
 
-    step_fn, specs, _ = step.make_train_step(mesh, cfg)
-    x = step.build_batch(mesh, cfg, seed=1)
-    profile_rec = profile_steps(step_fn, state, x, phase="phase 13",
-                                fence=lambda s: float(s["params"]["step"]))
-    del x
+    _, specs, _ = step.make_train_step(mesh, cfg)
 
     # serving the trained parameters, gathered to the host as a checkpoint
     # would hold them
@@ -1173,7 +1099,7 @@ def workload_bench(gen, smi: str) -> dict:
     drill = resume_drill(mesh, ROOT / "build" / "chip_smoke")
     return dict(train=run, peak_memory_gb=peak_gb, seconds=seconds,
                 step_flops=step_flops, bf16_bound_s=bound_s, mfu_pct=mfu,
-                profile=profile_rec, serve=rec, serve_seconds=serve_s,
+                serve=rec, serve_seconds=serve_s,
                 forward_bound_ms=fwd_bound_ms, harness=sweep,
                 resume_drill=drill, nvidia_smi=smi)
 

@@ -41,6 +41,7 @@ from kubeoperator_tpu_torch.parallel.mesh import (
     mesh_sizes,
 )
 from kubeoperator_tpu_torch.parallel.validation_net import NetConfig
+from kubeoperator_tpu_torch.utils.spans import span
 from kubeoperator_tpu_torch.workloads.partition import (
     make_shard_and_gather_fns,
     replicated_specs,
@@ -98,7 +99,8 @@ def run_training(mesh: DeviceMesh, cfg: NetConfig | None = None, steps: int = 4,
     start_step = int(float(state["params"]["step"]))
     x = build_batch(mesh, cfg, seed=seed + 1)
     # the first step runs outside the timed window; it is step 1 of `steps`
-    loss, state = step_fn(state, x)
+    with span("train.step"):
+        loss, state = step_fn(state, x)
     device_losses = [loss]
     float(loss)
     float(state["params"]["step"])
@@ -116,7 +118,8 @@ def run_training(mesh: DeviceMesh, cfg: NetConfig | None = None, steps: int = 4,
     if not stopped:
         periodic(1)   # inside the timed window, like every later save
         for _ in range(max(steps - 1, 0)):
-            loss, state = step_fn(state, x)
+            with span("train.step"):
+                loss, state = step_fn(state, x)
             device_losses.append(loss)
             if on_step and on_step(len(device_losses), loss):
                 stopped = True

@@ -47,6 +47,7 @@ from torch.distributed.device_mesh import DeviceMesh
 from kubeoperator_tpu_torch.parallel.comm import all_gather, psum, replicate
 from kubeoperator_tpu_torch.parallel.mesh import MeshSpec, mesh_device, mesh_sizes
 from kubeoperator_tpu_torch.parallel.validation_net import NetConfig, rms
+from kubeoperator_tpu_torch.utils.spans import span
 from kubeoperator_tpu_torch.weights import bf16_from_f64, local_shard, spec_axes
 from kubeoperator_tpu_torch.workloads.partition import (
     PartitionError,
@@ -266,28 +267,33 @@ def _forward(p: dict, x: torch.Tensor, cfg: NetConfig, tp=None) -> torch.Tensor:
     dh = d // h
     bsz, seq = x.shape[0], x.shape[1]
 
-    qkv = rms(x) @ p["wqkv"]
-    q, k, v = torch.split(qkv, d, dim=-1)
-
     def heads4(t):
         return t.reshape(bsz, seq, h, dh)
 
-    # divided by a 0-d tensor on x's device: a CUDA kernel divides by a
-    # host scalar through its reciprocal, which rounds differently
-    root = torch.full((), math.sqrt(dh), dtype=torch.float32, device=x.device)
-    logits = torch.einsum("bqhe,bkhe->bhqk", heads4(q), heads4(k)).float() / root
-    causal = torch.ones((seq, seq), dtype=torch.bool, device=x.device).tril()
-    logits = torch.where(causal, logits, -1e30)
-    attn = torch.softmax(logits, dim=-1).to(x.dtype)
-    att = torch.einsum("bhqk,bkhe->bqhe", attn, heads4(v)).reshape(bsz, seq, d)
-    hx = x + att
-    f_in = rms(hx)
-    if tp is not None:
-        f_in = replicate(f_in, tp)
-    ff = F.gelu(f_in @ p["w_in"], approximate="tanh") @ p["w_out"]
-    if tp is not None:
-        ff = psum(ff, tp)
-    hx = hx + ff
+    with span("block.attention"):
+        qkv = rms(x) @ p["wqkv"]
+        q, k, v = torch.split(qkv, d, dim=-1)
+        # divided by a 0-d tensor on x's device: a CUDA kernel divides by a
+        # host scalar through its reciprocal, which rounds differently
+        root = torch.full((), math.sqrt(dh), dtype=torch.float32,
+                          device=x.device)
+        logits = torch.einsum("bqhe,bkhe->bhqk", heads4(q),
+                              heads4(k)).float() / root
+        causal = torch.ones((seq, seq), dtype=torch.bool,
+                            device=x.device).tril()
+        logits = torch.where(causal, logits, -1e30)
+        attn = torch.softmax(logits, dim=-1).to(x.dtype)
+        att = torch.einsum("bhqk,bkhe->bqhe", attn,
+                           heads4(v)).reshape(bsz, seq, d)
+        hx = x + att
+    with span("block.ffn"):
+        f_in = rms(hx)
+        if tp is not None:
+            f_in = replicate(f_in, tp)
+        ff = F.gelu(f_in @ p["w_in"], approximate="tanh") @ p["w_out"]
+        if tp is not None:
+            ff = psum(ff, tp)
+        hx = hx + ff
     return hx @ p["w_head"]
 
 
@@ -453,7 +459,7 @@ def compile_step(mesh: DeviceMesh, cfg: NetConfig | None = None, specs=None,
     def step_fn(state: dict, x: torch.Tensor):
         params = state["params"]
         loss, grads = loss_and_grads(params, x)
-        with torch.no_grad():
+        with torch.no_grad(), span("step.optimizer"):
             grads = {k: grads[k] for k in params}
             opt = state["opt"]
             if pspecs is not None:
