@@ -107,6 +107,13 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      `perf_matrix.py`, K1 and K2 counted from 0 around them), whose round
      trip must be exact; its DCN row takes one card a rank, so phase 10
      prints it where 4 cards are visible
+ 19. K3, the fused causal attention (`ops/attention.py`, CUDA): against
+     its plain version on the card at `ATTENTION_SHAPES` for the output and
+     the three gradients, two backward runs bit-identical; then its forward
+     and backward times at the train cells' shapes beside their bounds
+     (the causal half of 2 and 4 products at 989 TFLOP/s), the plain
+     version's and SDPA's (`library_ms`, a yardstick the port never calls),
+     and each of its kernels' registers, spills and shared memory
 Phase 10 also runs, over its 2 processes, the bench twin's >= 2-rank
 branch (rank 0's line), Ulysses across the two cards, and then
 `dryrun_multichip(2, device="cuda")`; with 4 or more cards,
@@ -116,9 +123,11 @@ one a card, dcn and ici psums 3.0); then the callback relay's 2-rank form: `koct
 and resumed (one rank process a card), equal losses, the reference's;
 then `koctl chaos-soak --preemption --mesh data=2` (survivor data=1).
 The train path (phases 11-12), the workload (phase 13), the verbs
-(phase 17) and the drills (phase 18) run no hand-written kernel: K1's and
-K2's counts are set to 0 before them (read from the verbs' processes for
-phases 17 and 18) and printed after them.
+(phase 17) and the drills (phase 18) run neither K1 nor K2: their counts
+are set to 0 before them (read from the verbs' processes for phases 17
+and 18) and printed after them. Phase 13's bf16 training runs K3 through
+the dense stage's attention, 5 launches a step (1 forward, 4 backward),
+and prints its count; the f32 verbs and drills keep the plain chain.
 Then the kernels line (JSON) and, last, the result line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 A copy of everything measured goes to chiprun_out/chip_smoke.json.
@@ -205,6 +214,16 @@ GRAFT_STEP_RTOL, GRAFT_STEP_ATOL = 2 ** -7, 2 ** -6
 # Ulysses against full attention, f32 without TF32: the reference's 2e-4
 ULYSSES_TOL = 2e-4
 ULYSSES_SHAPE = (2, 256, 8, 64)     # [batch, seq per rank, heads, head dim]
+# K3 (fused causal attention) on the card: a ragged shape, then the train
+# cells' shapes (dense-train 48 x 1024, dense-train-long 6 x 8192 tokens,
+# 8 heads of 512), [batch, seq, heads, head dim]
+ATTENTION_SHAPES = ((2, 333, 2, 512), (48, 1024, 8, 512), (6, 8192, 8, 512))
+# K3 against its plain version, bf16 both ways: roundings of relative size
+# 2^-9 or less an entry (S's f32 sums in another order, P rounded before
+# normalising, dO·vᵀ kept f32, D from O), summed over random terms: under
+# one bf16 step of each tensor's norm, a few steps of its largest entry
+# (tests/test_torch_attention.py gives the same two limits)
+ATTENTION_NORM_TOL, ATTENTION_MAX_TOL = 2 ** -8, 2 ** -5
 
 
 def fail(msg: str) -> None:
@@ -1029,6 +1048,7 @@ def workload_bench(gen, smi: str) -> dict:
     import torch
 
     from kubeoperator_tpu_torch.parallel import validation_net as vnet
+    from kubeoperator_tpu_torch.ops import attention
     from kubeoperator_tpu_torch.parallel.mesh import MeshSpec
     from kubeoperator_tpu_torch.workloads import harness, partition, serve, step
 
@@ -1037,10 +1057,15 @@ def workload_bench(gen, smi: str) -> dict:
     peak = gen.bf16_tflops_per_chip
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    attention.causal_attention.launches = 0
     t0 = time.perf_counter()
     run = harness.run_training(mesh, cfg, steps=12, mode="auto",
                                return_state=True)
     seconds = time.perf_counter() - t0
+    k3_launches = attention.causal_attention.launches
+    if k3_launches != 12 * (attention.LAUNCHES_FORWARD
+                            + attention.LAUNCHES_BACKWARD):
+        fail(f"12 bf16 workload steps launched K3 {k3_launches} times")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     state = run.pop("state")
     if run["mode"] != "pjit" or not run["finite"]:
@@ -1053,7 +1078,8 @@ def workload_bench(gen, smi: str) -> dict:
           f"steps/s={run['steps_per_s']} model TFLOP/s={run['model_tflops_per_s']} "
           f"MFU={mfu:.3f}% step FLOPs={step_flops:.5g} (bf16 bound {bound_s:.4f} s "
           f"a step) peak memory={peak_gb:.2f} GB; losses {run['losses']} {trend}; "
-          f"{seconds:.1f} s with the host build", flush=True)
+          f"{seconds:.1f} s with the host build; K3 launched {k3_launches} "
+          f"times", flush=True)
 
     _, specs, _ = step.make_train_step(mesh, cfg)
 
@@ -1098,10 +1124,98 @@ def workload_bench(gen, smi: str) -> dict:
 
     drill = resume_drill(mesh, ROOT / "build" / "chip_smoke")
     return dict(train=run, peak_memory_gb=peak_gb, seconds=seconds,
+                k3_launches=k3_launches,
                 step_flops=step_flops, bf16_bound_s=bound_s, mfu_pct=mfu,
                 serve=rec, serve_seconds=serve_s,
                 forward_bound_ms=fwd_bound_ms, harness=sweep,
                 resume_drill=drill, nvidia_smi=smi)
+
+
+def attention_phase(smi: str) -> dict:
+    """Phase 19: K3 against its plain version on the card, bit-identical
+    backward, its times at the train cells' shapes (module docstring).
+    Alone: ``python3 -c "import chip_smoke; chip_smoke.attention_phase('')"``."""
+    import torch
+    import torch.nn.functional as F
+
+    from kubeoperator_tpu_torch.ops import attention as k3
+
+    dev = torch.device("cuda", 0)
+    shapes = {}
+    for b, s, h, dh in ATTENTION_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(s)
+        qkv = torch.randn((b, s, 3 * h * dh), device=dev, generator=gen)
+        qkv = qkv.bfloat16().requires_grad_()
+        do = torch.randn((b, s, h * dh), device=dev, generator=gen).bfloat16()
+
+        def heads():
+            return [t.reshape(b, s, h, dh)
+                    for t in torch.split(qkv, h * dh, dim=-1)]
+
+        def run(fn):
+            q, k, v = heads()
+            out = fn(q, k, v)
+            return [out.detach(), *torch.autograd.grad(out, (q, k, v), do)]
+
+        got, again = run(k3.causal_attention), run(k3.causal_attention)
+        want = run(k3.attention_reference)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, g, w, a in zip(("o", "dq", "dk", "dv"), got, want, again):
+            g, w = g.float(), w.float()
+            errs[name] = dict(norm=float((g - w).norm() / w.norm()),
+                              max=float((g - w).abs().max() / w.abs().max()),
+                              bit_identical=bool(torch.equal(g, a.float())))
+            if not (bool(torch.isfinite(g).all())
+                    and errs[name]["norm"] <= ATTENTION_NORM_TOL
+                    and errs[name]["max"] <= ATTENTION_MAX_TOL
+                    and errs[name]["bit_identical"]):
+                fail(f"K3 at {(b, s, h, dh)}: {name} {errs[name]}")
+        del got, want, again
+        torch.cuda.empty_cache()
+        rec = dict(errors=errs)
+        if (b, s) != ATTENTION_SHAPES[0][:2]:
+            q, k, v = (t.detach() for t in heads())
+            o, lse = k3._launch_forward(q, k, v)
+            product = b * h * dh * s * (s + 1)  # one causal b·h·s²·dh product
+            rec.update(
+                fwd_ms=event_ms(lambda: k3._launch_forward(q, k, v), 5, 3),
+                bwd_ms=event_ms(lambda: k3._launch_backward(
+                    q, k, v, o, lse, do.reshape(b, s, h, dh)), 5, 1),
+                fwd_bound_ms=2 * product / 989e12 * 1e3,
+                bwd_bound_ms=4 * product / 989e12 * 1e3,
+                resources=k3.kernel_resources())
+            yardsticks = {
+                "plain": (k3.attention_reference, lambda t: t, do),
+                "library": (lambda *x: F.scaled_dot_product_attention(
+                    *x, is_causal=True), lambda t: t.transpose(1, 2),
+                    do.reshape(b, s, h, dh).transpose(1, 2))}
+            for name, (fn, layout, dout) in yardsticks.items():
+                x = [layout(t).detach().requires_grad_() for t in (q, k, v)]
+                try:
+                    with torch.no_grad():
+                        fwd = event_ms(lambda: fn(*x), 3, 1)
+                    both = event_ms(
+                        lambda: torch.autograd.grad(fn(*x), x, dout), 3, 1)
+                    rec[f"{name}_fwd_ms"], rec[f"{name}_bwd_ms"] = fwd, both - fwd
+                except RuntimeError as e:       # out of memory, no kernel
+                    rec[f"{name}_error"] = str(e)[:300]
+                del x
+                torch.cuda.empty_cache()
+            del q, k, v, o, lse
+        shapes[f"{b}x{s}x{h}x{dh}"] = rec
+        print(f"phase 19: K3 at {(b, s, h, dh)} on {smi}: {json.dumps(rec)}",
+              flush=True)
+        del qkv, do
+        torch.cuda.empty_cache()
+    return dict(shapes=shapes, nvidia_smi=smi)
+
+
+def fwd_and_bwd(rec: dict, name: str) -> float | None:
+    """A phase 19 yardstick's forward plus backward ms (None if it failed)."""
+    if f"{name}_fwd_ms" not in rec:
+        return None
+    return rec[f"{name}_fwd_ms"] + rec[f"{name}_bwd_ms"]
 
 
 def bench_phase(gen, smi: str, dma_mod) -> dict:
@@ -1491,6 +1605,11 @@ def main(argv: list[str] | None = None) -> int:
     drill = drill_phase(smi)
     drill["launches_here"] = dict(dma_read=dma_read.launches,
                                   ring_all_gather=ring_all_gather.launches)
+
+    # 19. K3 on the card
+    torch.cuda.empty_cache()
+    k3 = attention_phase(smi)
+    long = k3["shapes"]["6x8192x8x512"]
     n8 = ring_times["times"][8]
     forms = ["one card, virtual ranks"] + (["process per card"] if multi else [])
     kernels = {"kernels": [{
@@ -1509,6 +1628,18 @@ def main(argv: list[str] | None = None) -> int:
         "ms": n8["kernel_ms"], "plain_ms": n8["plain_ms"],
         "bound_ms": n8["bound_ms"], "bound_by": "bytes",
         "library_ms": n8["library_ms"], "host_forms": forms,
+    }, {
+        "name": "causal_attention", "route": "cuda",
+        "source": "kubeoperator_tpu_torch/ops/attention.py",
+        "replaces": None, "launches": workload["k3_launches"],
+        "launches_per_train_step": workload["k3_launches"] / 12,
+        "max_norm_err": max(e["norm"] for r in k3["shapes"].values()
+                            for e in r["errors"].values()),
+        "ms": long["fwd_ms"] + long["bwd_ms"],
+        "plain_ms": fwd_and_bwd(long, "plain"),
+        "bound_ms": long["fwd_bound_ms"] + long["bwd_bound_ms"],
+        "bound_by": "operations",
+        "library_ms": fwd_and_bwd(long, "library"),
     }]}
     record.update(kernels=kernels, diag=report, smoke=smoke,
                   parent_ms=parents,
@@ -1519,7 +1650,8 @@ def main(argv: list[str] | None = None) -> int:
                   train_path_launches=train_launches, workload=workload,
                   workload_launches=workload_launches, bench=bench_rec,
                   graft=graft, dcn_ulysses=dcn_ulysses, workload_chain=chain,
-                  drills=drill, seconds=time.perf_counter() - t_start)
+                  drills=drill, attention=k3,
+                  seconds=time.perf_counter() - t_start)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=2))

@@ -9,6 +9,9 @@
   ring_gather.py  explicit neighbour ring all-gather: kernel K2,
                   hand-written CUDA in csrc/ring_all_gather.cu (one card
                   with n virtual ranks, or one process per card)
+  attention.py    the dense stage's fused causal attention: kernel K3,
+                  hand-written CUDA in csrc/attention.cu (forward and a
+                  backward with no atomics)
   longcontext_check.py  ring-attention exactness + throughput over the
                   ring (the long-context path of parallel/longcontext.py)
   train_smoke.py  a few sharded training steps of the validation net
@@ -21,7 +24,8 @@
 
 Only what is ported is exported; see ROADMAP.md for the rest. The kernel
 wrappers themselves stay in their modules (`ops.dma_read.dma_read`,
-`ops.ring_gather.ring_all_gather`), each with its launch count
+`ops.ring_gather.ring_all_gather`, `ops.attention.causal_attention`), each
+with its launch count
 (`.launches`).
 """
 

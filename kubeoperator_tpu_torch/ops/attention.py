@@ -1,0 +1,266 @@
+"""Fused causal attention of the dense stage (kernel K3).
+
+`causal_attention(q, k, v)` is the attention of
+`workloads/step.py::_forward`: q, k and v are [b, s, h, dh] (in the step,
+views of one qkv product with row stride 3·h·dh), the output [b, s, h·dh].
+A bf16 CUDA input goes through hand-written CUDA kernels
+(`csrc/attention.cu`, built by `ops/_build.py`; its header note gives the
+design), one launch forward and four back, held in a
+`torch.autograd.Function`; a CPU input takes `attention_reference`, the
+plain PyTorch chain the step ran before, operation for operation; any other
+CUDA input raises. `causal_attention.launches` counts the kernels'
+launches: `LAUNCHES_FORWARD` a forward, `LAUNCHES_BACKWARD` a backward.
+
+Source note:
+
+* It replaces no TPU kernel: the JAX package writes this chain as plain
+  `jnp` and leaves it to XLA's fusion. On the card the eager chain wrote
+  [b, h, s, s] f32 scores to device memory and swept them about a dozen
+  times forward and back: at 8 heads of 8192-token rows, 12.9 GB a sweep.
+  The kernels keep each tile of scores in registers.
+* What bounds it on the H100: the products (two b·h·s²·dh products over
+  the causal half forward, eight back), run by wgmma from tiles in shared
+  memory; at dh = 512 far above the card's 295 operations a byte, and in
+  practice held back by re-reading the streamed tiles from L2 and by the
+  softmax running between the products (the kernels' header).
+* The library is built for head widths `WIDTHS`. A head width between them
+  runs at the next one up, q, k and v copied into zero-padded [b, s, h, w]
+  tensors (zero columns add exact zeros to every sum); so does a layout
+  whose rows are not 16-byte aligned. Widths above `MAX_DH` raise: a
+  [64, dh] f32 accumulator would not fit the register file.
+* Same rounding points as the chain, except where the kernel normalises
+  (after P·v, the chain before its cast of P to bf16); see the kernels'
+  header.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+import re
+
+import numpy as np
+import torch
+
+from kubeoperator_tpu_torch.ops import _build
+
+WIDTHS = (64, 128, 256, 512)   # head widths the library is built for
+MAX_DH = WIDTHS[-1]
+MASK = -1e30
+KINDS = {"fwd": 0, "dv": 1, "dk": 2, "dq": 3}
+LAUNCHES_FORWARD = 1
+LAUNCHES_BACKWARD = 4          # D, dV, dK, dQ
+
+
+def attention_reference(q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor) -> torch.Tensor:
+    """Plain version: the dense stage's eager chain, operation for
+    operation. The logits product comes out in q's type, is widened to f32
+    and only then divided by sqrt(dh) (a 0-d tensor on q's device: a CUDA
+    kernel divides by a host scalar through its reciprocal, which rounds
+    differently); the causal mask is -1e30; softmax in f32, cast back."""
+    bsz, seq, h, dh = q.shape
+    root = torch.full((), math.sqrt(dh), dtype=torch.float32, device=q.device)
+    logits = torch.einsum("bqhe,bkhe->bhqk", q, k).float() / root
+    causal = torch.ones((seq, seq), dtype=torch.bool, device=q.device).tril()
+    logits = torch.where(causal, logits, MASK)
+    attn = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhe->bqhe", attn, v).reshape(bsz, seq, h * dh)
+
+
+def kernel_width(dh: int) -> int:
+    """The built head width that a head width of `dh` runs at."""
+    return next(w for w in WIDTHS if w >= dh)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != torch.bfloat16:
+            raise ValueError(f"{name} must be bfloat16 on CUDA, got {t.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if t.shape != q.shape or t.stride() != q.stride():
+            raise ValueError(
+                f"q, k and v must share shape and strides, got {name} "
+                f"{tuple(t.shape)} {t.stride()}, "
+                f"q {tuple(q.shape)} {q.stride()}")
+    if q.dim() != 4 or q.numel() == 0:
+        raise ValueError(f"q must be a non-empty [b, s, h, dh], got "
+                         f"{tuple(q.shape)}")
+    if q.shape[3] > MAX_DH:
+        raise ValueError(f"head width {q.shape[3]} is above {MAX_DH}, the "
+                         f"widest the kernels are built for")
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+
+
+def causal_attention(q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor) -> torch.Tensor:
+    """Causal softmax attention of [b, s, h, dh] q, k, v as [b, s, h·dh]:
+    the kernels for bf16 CUDA tensors (saving what backward needs only
+    where a gradient is wanted), the plain version for CPU tensors;
+    ValueError for any other input."""
+    if q.device.type == "cpu":
+        return attention_reference(q, k, v)
+    _check(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FusedCausalAttention.apply(q, k, v)
+    dh = q.shape[3]
+    return _unpadded(_launch_forward(*_laid_out(q, k, v), dh)[0], dh)
+
+
+causal_attention.launches = 0
+
+
+class _FusedCausalAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v):
+        dh = q.shape[3]
+        q, k, v = _laid_out(q, k, v)
+        o, lse = _launch_forward(q, k, v, dh)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.dh = dh
+        return _unpadded(o, dh)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dh = ctx.dh
+        do = _padded(do.reshape(*o.shape[:3], dh), o.shape[3])
+        return tuple(g if g.shape[3] == dh else g[..., :dh]
+                     for g in _launch_backward(q, k, v, o, lse, do, dh))
+
+
+def _padded(t: torch.Tensor, width: int) -> torch.Tensor:
+    """`t` [b, s, h, dh] as a contiguous, 16-byte aligned [b, s, h, width],
+    zero-filled past dh."""
+    if t.shape[3] == width and t.is_contiguous() and t.data_ptr() % 16 == 0:
+        return t
+    out = t.new_zeros((*t.shape[:3], width))
+    out[..., :t.shape[3]] = t
+    return out
+
+
+def _laid_out(q, k, v):
+    """q, k and v as the kernels read them: in place where dh is a built
+    width and rows and heads start 16-byte aligned, else zero-padded
+    copies at the next built width."""
+    width = kernel_width(q.shape[3])
+    if (q.shape[3] == width and q.stride(3) == 1
+            and all(s % 8 == 0 for s in q.stride()[:3])
+            and all(t.data_ptr() % 16 == 0 for t in (q, k, v))):
+        return q, k, v
+    return tuple(_padded(t, width) for t in (q, k, v))
+
+
+def _unpadded(o: torch.Tensor, dh: int) -> torch.Tensor:
+    """The kernels' [b, s, h, width] output as [b, s, h·dh]."""
+    bsz, seq, h, width = o.shape
+    if width != dh:
+        o = o[..., :dh]
+    return o.reshape(bsz, seq, h * dh)
+
+
+def divisor(dh: int) -> tuple[float, float]:
+    """sqrt(dh) in f32 and r, the f32 nearest its reciprocal. The kernels
+    divide x by the first as t = x·r, then t + fma(-t, root, x)·r: one fma
+    step that gives the correctly rounded f32 quotient for any x of
+    magnitude 2^-100 or more (Markstein's theorem: r within half an ulp of
+    the reciprocal, t within one ulp of the quotient), as a true division
+    does, in three operations where `div.rn.f32` takes about twice as many
+    and a slow-path check."""
+    root = np.float32(math.sqrt(dh))
+    return float(root), float(np.float32(1) / root)
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    lib = _build.load("attention")
+    vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                         ctypes.c_float)
+    lib.ko_attention.argtypes = [i32, i32, *[vp] * 8, i64, i64, i64, i32,
+                                 i32, i32, f32, f32, vp]
+    lib.ko_attention_delta.argtypes = [i32, vp, vp, vp, i32, i32, i32, vp]
+    lib.ko_attention_smem.argtypes = [i32, i32]
+    for fn in (lib.ko_attention, lib.ko_attention_delta,
+               lib.ko_attention_smem):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _ok(status: int, what: str) -> None:
+    if status != 0:
+        raise RuntimeError(f"K3 {what}: launch failed, cudaError {status}")
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(kind: str, q, k, v, out, dh: int, do=None, lse=None,
+            delta=None, lse_out=None) -> None:
+    bsz, seq, h, width = q.shape
+    _ok(_library().ko_attention(
+        KINDS[kind], width, _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse),
+        _ptr(delta), _ptr(out), _ptr(lse_out), *q.stride()[:3], bsz, h, seq,
+        *divisor(dh), torch.cuda.current_stream(q.device).cuda_stream), kind)
+
+
+def _launch_forward(q, k, v, dh: int | None = None):
+    """o [b, s, h, width] and lse [b, h, s] (f32) for q, k, v as the kernels
+    read them (`_laid_out`); `dh`, the head width before padding, sets the
+    divisor (default: q's width)."""
+    bsz, seq, h, width = q.shape
+    o = torch.empty((bsz, seq, h, width), dtype=q.dtype, device=q.device)
+    lse = torch.empty((bsz, h, seq), dtype=torch.float32, device=q.device)
+    _launch("fwd", q, k, v, o, dh or width, lse_out=lse)
+    causal_attention.launches += LAUNCHES_FORWARD
+    return o, lse
+
+
+def _launch_backward(q, k, v, o, lse, do, dh: int | None = None):
+    """dq, dk, dv (contiguous [b, s, h, width]) for a contiguous
+    [b, s, h, width] dO, from `_launch_forward`'s o and lse."""
+    bsz, seq, h, width = q.shape
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    delta = torch.empty_like(lse)
+    _ok(_library().ko_attention_delta(width, o.data_ptr(), do.data_ptr(),
+                                      delta.data_ptr(), bsz, h, seq, stream),
+        "delta")
+    dq, dk, dv = (torch.empty(o.shape, dtype=q.dtype, device=q.device)
+                  for _ in range(3))
+    for kind, out in (("dv", dv), ("dk", dk), ("dq", dq)):
+        _launch(kind, q, k, v, out, dh or width, do=do, lse=lse, delta=delta)
+    causal_attention.launches += LAUNCHES_BACKWARD
+    return dq, dk, dv
+
+
+def kernel_resources() -> dict:
+    """Registers a thread, spilled bytes and shared memory bytes (static
+    plus dynamic) of each kernel at each built width, from ptxas's report
+    when the library was built: {"fwd512": {...}, "delta512": {...}, ...}."""
+    lib = _library()
+    names = {str(v): k for k, v in KINDS.items()}
+    out = {}
+    for entry in _build.build_log("attention").split(
+            "Compiling entry function")[1:]:
+        kernel = re.search(r"attention_kernelILi(\d)ELi(\d+)E", entry)
+        delta = re.search(r"delta_kernelILi(\d+)E", entry)
+        regs = re.search(r"Used (\d+) registers", entry)
+        if not (kernel or delta) or not regs:
+            continue
+        spills = re.search(r"(\d+) bytes spill stores", entry)
+        static = re.search(r"(\d+) bytes smem", entry)
+        shared = int(static.group(1)) if static else 0
+        if kernel:
+            name = names[kernel.group(1)] + kernel.group(2)
+            shared += lib.ko_attention_smem(int(kernel.group(1)),
+                                            int(kernel.group(2)))
+        else:
+            name = "delta" + delta.group(1)
+        out[name] = dict(n_regs=int(regs.group(1)),
+                         n_spills=int(spills.group(1)) if spills else 0,
+                         shared=shared)
+    return out

@@ -45,6 +45,7 @@ from kubeoperator_tpu_torch.workloads.step import (
     _forward,
     build_batch,
     build_host_params,
+    check_attention_width,
     check_workload_mesh,
     default_rules,
     gather_on_use,
@@ -68,6 +69,7 @@ def compile_forward(mesh: DeviceMesh, cfg: NetConfig | None = None, specs=None,
     shard_map), or a forced ``pjit`` / ``shard_map``."""
     cfg = cfg or NetConfig()
     check_workload_mesh(mesh, "serving")
+    check_attention_width(mesh, cfg)
     if mode == "auto":
         mode = "pjit" if specs is not None else "shard_map"
     if mode == "pjit":

@@ -34,7 +34,6 @@ out parameters and moments alike.
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -44,9 +43,15 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch.distributed.device_mesh import DeviceMesh
 
+from kubeoperator_tpu_torch.ops.attention import (
+    MAX_DH,
+    attention_reference,
+    causal_attention,
+)
 from kubeoperator_tpu_torch.parallel.comm import all_gather, psum, replicate
 from kubeoperator_tpu_torch.parallel.mesh import MeshSpec, mesh_device, mesh_sizes
 from kubeoperator_tpu_torch.parallel.validation_net import NetConfig, rms
+from kubeoperator_tpu_torch.utils.errors import ValidationError
 from kubeoperator_tpu_torch.utils.spans import span
 from kubeoperator_tpu_torch.weights import bf16_from_f64, local_shard, spec_axes
 from kubeoperator_tpu_torch.workloads.partition import (
@@ -260,9 +265,10 @@ def build_batch(mesh: DeviceMesh, cfg: NetConfig | None = None,
 def _forward(p: dict, x: torch.Tensor, cfg: NetConfig, tp=None) -> torch.Tensor:
     """The dense stage on whole weights (w_in / w_out: this rank's tp blocks
     when `tp`, the group they are cut over, is given), with the reference's
-    rounding points: rms squares in x's type; the logits product comes out
-    in x's type, is widened to f32 and only then divided by sqrt(dh); the
-    causal mask is -1e30; softmax in f32, cast back; tanh gelu."""
+    rounding points: rms squares in x's type; attention as
+    `ops/attention.py::attention_reference` has them (the logits product
+    in x's type, widened to f32 and only then divided by sqrt(dh), the
+    causal mask -1e30, softmax in f32, cast back); tanh gelu."""
     d, h = cfg.d_model, cfg.heads
     dh = d // h
     bsz, seq = x.shape[0], x.shape[1]
@@ -272,20 +278,12 @@ def _forward(p: dict, x: torch.Tensor, cfg: NetConfig, tp=None) -> torch.Tensor:
 
     with span("block.attention"):
         qkv = rms(x) @ p["wqkv"]
-        q, k, v = torch.split(qkv, d, dim=-1)
-        # divided by a 0-d tensor on x's device: a CUDA kernel divides by a
-        # host scalar through its reciprocal, which rounds differently
-        root = torch.full((), math.sqrt(dh), dtype=torch.float32,
-                          device=x.device)
-        logits = torch.einsum("bqhe,bkhe->bhqk", heads4(q),
-                              heads4(k)).float() / root
-        causal = torch.ones((seq, seq), dtype=torch.bool,
-                            device=x.device).tril()
-        logits = torch.where(causal, logits, -1e30)
-        attn = torch.softmax(logits, dim=-1).to(x.dtype)
-        att = torch.einsum("bhqk,bkhe->bqhe", attn,
-                           heads4(v)).reshape(bsz, seq, d)
-        hx = x + att
+        q, k, v = (heads4(t) for t in torch.split(qkv, d, dim=-1))
+        # f32 keeps the plain chain on every device; bf16 goes to the fused
+        # kernels on a card and to the same plain chain on the host
+        attend = (attention_reference if x.dtype == torch.float32
+                  else causal_attention)
+        hx = x + attend(q, k, v)
     with span("block.ffn"):
         f_in = rms(hx)
         if tp is not None:
@@ -330,6 +328,18 @@ def check_workload_mesh(mesh: DeviceMesh | MeshSpec, what: str) -> dict[str, int
                 f"{what} mesh must carry the {WORKLOAD_AXES} axes, "
                 f"got {tuple(sizes)}")
     return sizes
+
+
+def check_attention_width(mesh: DeviceMesh, cfg: NetConfig) -> None:
+    """ValidationError for a bf16 config on a card whose head width the
+    fused attention is not built for (`ops/attention.py::MAX_DH`), when the
+    step or forward is built rather than at its first call."""
+    dh = cfg.d_model // cfg.heads
+    if (cfg.dtype == "bfloat16" and mesh.device_type == "cuda"
+            and dh > MAX_DH):
+        raise ValidationError(
+            f"a bfloat16 run on a card takes head widths up to {MAX_DH} "
+            f"(d_model / heads), not {dh}")
 
 
 # the Megatron pair: w_in's columns and w_out's rows cut on tp
@@ -384,6 +394,7 @@ def compile_step(mesh: DeviceMesh, cfg: NetConfig | None = None, specs=None,
     cfg = cfg or NetConfig()
     optimizer = make_optimizer(lr)
     sizes = check_workload_mesh(mesh, "workload")
+    check_attention_width(mesh, cfg)
     if specs is not None and (not isinstance(specs, dict)
                               or set(specs) != {"params", "opt"}):
         raise PartitionError(

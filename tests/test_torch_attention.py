@@ -1,0 +1,450 @@
+"""The dense stage's fused causal attention (`ops/attention.py`, K3).
+
+On the host: the plain version is the chain `workloads/step.py::_forward`
+ran before, bit for bit; a plain PyTorch walk of the kernels' tiles
+matches autograd of the plain version in f32; `_forward` sends f32 to the
+plain version by its own dtype test and bf16 to the wrapper, which takes
+the plain version for CPU tensors and refuses what the kernels do not
+take. On a card (marker ``cuda``, skipped elsewhere): the kernels against
+the plain version there at the cells' shapes, bit-identical gradients from
+run to run, and the launches a `_forward` makes. Imports no JAX:
+
+    python -m pytest tests/test_torch_attention.py -m cuda --noconftest -q
+"""
+
+import dataclasses
+import math
+import re
+from pathlib import Path
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from kubeoperator_tpu_torch.ops import attention
+from kubeoperator_tpu_torch.ops.attention import (
+    attention_reference,
+    causal_attention,
+)
+from kubeoperator_tpu_torch.parallel.validation_net import NetConfig
+from kubeoperator_tpu_torch.utils.errors import ValidationError
+from kubeoperator_tpu_torch.workloads import step
+
+
+def _qkv(bsz, seq, h, dh, dtype, seed=0, device="cpu"):
+    gen = torch.Generator().manual_seed(seed)
+    qkv = torch.randn((bsz, seq, 3 * h * dh), generator=gen).to(dtype)
+    return qkv.to(device).requires_grad_()
+
+
+def _heads(qkv, h):
+    bsz, seq, three_d = qkv.shape
+    d = three_d // 3
+    return [t.reshape(bsz, seq, h, d // h)
+            for t in torch.split(qkv, d, dim=-1)]
+
+
+def former_chain(qkv, h):
+    """`_forward`'s attention as the step wrote it before the kernel."""
+    bsz, seq, three_d = qkv.shape
+    d = three_d // 3
+    dh = d // h
+    q, k, v = torch.split(qkv, d, dim=-1)
+
+    def heads4(t):
+        return t.reshape(bsz, seq, h, dh)
+
+    root = torch.full((), math.sqrt(dh), dtype=torch.float32,
+                      device=qkv.device)
+    logits = torch.einsum("bqhe,bkhe->bhqk", heads4(q),
+                          heads4(k)).float() / root
+    causal = torch.ones((seq, seq), dtype=torch.bool,
+                        device=qkv.device).tril()
+    logits = torch.where(causal, logits, -1e30)
+    attn = torch.softmax(logits, dim=-1).to(qkv.dtype)
+    return torch.einsum("bhqk,bkhe->bqhe", attn,
+                        heads4(v)).reshape(bsz, seq, d)
+
+
+def _grads(fn, qkv, h, seed=1):
+    out = fn(qkv, h)
+    gen = torch.Generator().manual_seed(seed)
+    dout = torch.randn(out.shape, generator=gen).to(out.dtype).to(out.device)
+    (grad,) = torch.autograd.grad(out, qkv, dout)
+    return out.detach(), grad
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(2, 17, 2, 8), (1, 40, 2, 64)])
+def test_plain_version_is_the_former_chain_bit_for_bit(dtype, shape):
+    bsz, seq, h, dh = shape
+    qkv = _qkv(bsz, seq, h, dh, dtype)
+    want_out, want_grad = _grads(former_chain, qkv, h)
+    got_out, got_grad = _grads(
+        lambda t, heads: causal_attention(*_heads(t, heads)), qkv, h)
+    assert torch.equal(got_out, want_out)
+    assert torch.equal(got_grad, want_grad)
+
+
+def tiled_attention(q, k, v, do, held, streamed):
+    """The kernels' walks in plain f32 PyTorch, for [b, s, h, dh] inputs:
+    forward per `held`-row Q tile over `streamed`-row K/V tiles, skipping
+    those wholly above the diagonal and masking only the tiles the diagonal
+    crosses, with an online max and sum; the log-sum-exp; D = rowsum(dO∘O);
+    dK and dV per `held`-row K tile over Q tiles from the diagonal down; dQ
+    per Q tile. Returns (o [b, s, h·dh], dq, dk, dv, tiles skipped in
+    forward)."""
+    bsz, seq, h, dh = q.shape
+    root = torch.tensor(math.sqrt(dh))
+    qh, kh, vh, doh = (t.transpose(1, 2) for t in (q, k, v, do))
+    o = torch.zeros_like(qh)
+    lse = torch.zeros(qh.shape[:3])
+    skipped = 0
+
+    def scores(rows, cols, diagonal):
+        s = qh[:, :, rows] @ kh[:, :, cols].transpose(-1, -2) / root
+        seen = cols[None, :] <= rows[:, None]
+        if not diagonal:                # the kernels leave these unmasked
+            assert bool(seen.all())
+            return s
+        return torch.where(seen, s, attention.MASK)
+
+    for m0 in range(0, seq, held):
+        rows = torch.arange(m0, min(m0 + held, seq))
+        m_i = torch.full(qh.shape[:2] + (len(rows),), -math.inf)
+        l_i = torch.zeros_like(m_i)
+        acc = torch.zeros(qh.shape[:2] + (len(rows), dh))
+        for n0 in range(0, seq, streamed):
+            cols = torch.arange(n0, min(n0 + streamed, seq))
+            if n0 >= min(m0 + held, seq):
+                assert bool((cols[:, None] > rows[None, :]).all())
+                skipped += 1
+                continue
+            s = scores(rows, cols, n0 + streamed > m0)
+            m_new = torch.maximum(m_i, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m_i - m_new)
+            l_i = l_i * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + p @ vh[:, :, cols]
+            m_i = m_new
+        o[:, :, rows] = acc / l_i[..., None]
+        lse[:, :, rows] = m_i + torch.log(l_i)
+    delta = (doh * o).sum(-1)
+    dq, dk, dv = (torch.zeros_like(qh) for _ in range(3))
+    for n0 in range(0, seq, held):
+        cols = torch.arange(n0, min(n0 + held, seq))
+        for m0 in range(n0, seq, streamed):
+            rows = torch.arange(m0, min(m0 + streamed, seq))
+            p = torch.exp(scores(rows, cols, m0 < n0 + held)
+                          - lse[:, :, rows, None])
+            dv[:, :, cols] += p.transpose(-1, -2) @ doh[:, :, rows]
+            dp = doh[:, :, rows] @ vh[:, :, cols].transpose(-1, -2)
+            ds = p * (dp - delta[:, :, rows, None]) / root
+            dk[:, :, cols] += ds.transpose(-1, -2) @ qh[:, :, rows]
+    for m0 in range(0, seq, held):
+        rows = torch.arange(m0, min(m0 + held, seq))
+        for n0 in range(0, min(m0 + held, seq), streamed):
+            cols = torch.arange(n0, min(n0 + streamed, seq))
+            p = torch.exp(scores(rows, cols, n0 + streamed > m0)
+                          - lse[:, :, rows, None])
+            dp = doh[:, :, rows] @ vh[:, :, cols].transpose(-1, -2)
+            ds = p * (dp - delta[:, :, rows, None]) / root
+            dq[:, :, rows] += ds @ kh[:, :, cols]
+    return (o.transpose(1, 2).reshape(bsz, seq, h * dh),
+            *(t.transpose(1, 2) for t in (dq, dk, dv)), skipped)
+
+
+@pytest.mark.parametrize("seq,dh,held,streamed", [
+    (37, 64, 16, 8),      # s not a multiple of either tile
+    (48, 64, 16, 16),     # square tiles: the diagonal on tile edges
+    (40, 512, 16, 4),     # the cells' head width, thin streamed tiles
+    (29, 512, 8, 8),
+    (100, 64, 64, 32),    # the kernels' own tiles: 64 rows held, 32 streamed
+])
+def test_tile_walk_matches_autograd_of_the_plain_version(seq, dh, held,
+                                                         streamed):
+    qkv = _qkv(2, seq, 2, dh, torch.float32, seed=seq)
+    q, k, v = _heads(qkv, 2)
+    out = attention_reference(q, k, v)
+    do = torch.randn(out.shape, generator=torch.Generator().manual_seed(7))
+    want = (out, *torch.autograd.grad(out, (q, k, v), do))
+    *got, skipped = tiled_attention(q.detach(), k.detach(), v.detach(),
+                                    do.reshape(q.shape), held, streamed)
+    n_tiles = -(-seq // streamed)
+    assert skipped == sum(max(0, n_tiles - -(-min(m0 + held, seq) // streamed))
+                          for m0 in range(0, seq, held)) > 0
+    # the same f32 arithmetic summed in another order (tiles, the online
+    # rescaling, D for rowsum(dP∘P)): a few f32 steps of entries up to ~10
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w.detach(), rtol=1e-5, atol=1e-5)
+
+
+def _kernel_quotient(x: np.ndarray, root: float, rinv: float) -> np.ndarray:
+    """x / root as the kernels compute it, t = x·rinv then
+    fma(fma(-t, root, x), rinv, t), each step rounded to f32 once: the
+    products of two f32 are exact in f64, the residual x - t·root is too,
+    and the last sum's f64 rounding error is recovered exactly (two-sum),
+    so the f32 rounding of the exact sum is taken, ties included."""
+    x = x.astype(np.float64)
+    t = (x * rinv).astype(np.float32).astype(np.float64)
+    r = (x - t * root).astype(np.float32).astype(np.float64)
+    a, b = t, r * rinv
+    hi = a + b
+    bb = hi - a
+    lo = (a - (hi - bb)) + (b - bb)
+    f = hi.astype(np.float32)
+    toward = np.where(hi > f, np.inf, -np.inf).astype(np.float32)
+    other = np.nextafter(f, toward)
+    tie = (hi != f) & (hi == (f.astype(np.float64) + other) / 2)
+    away = tie & (np.sign(lo) == np.sign(other.astype(np.float64) - hi))
+    return np.where(away, other, f)
+
+
+@pytest.mark.parametrize("dh", (8, 16, 32, 64, 96, 128, 256, 512))
+def test_the_kernels_divide_by_sqrt_dh_as_a_true_division(dh):
+    root, rinv = attention.divisor(dh)
+    assert np.float32(root) == torch.full((), math.sqrt(dh),
+                                          dtype=torch.float32).item()
+    # every finite bf16 score (the forward's dividends) of magnitude 2^-100
+    # or more, and zero (nearer 2^-126 the residual is subnormal and the
+    # quotient can be one step off) ...
+    bits = np.arange(2 ** 16, dtype=np.uint32) << 16
+    scores = bits.view(np.float32)
+    scores = scores[np.isfinite(scores) & ((np.abs(scores) >= 2.0 ** -100)
+                                           | (scores == 0))]
+    # ... and a million f32 dividends over 2^-60 .. 2^60 (the backward's)
+    rng = np.random.default_rng(dh)
+    n = 10 ** 6
+    wide = (rng.uniform(1, 2, n) * np.exp2(rng.integers(-60, 61, n))
+            * rng.choice([-1, 1], n)).astype(np.float32)
+    for x in (scores, wide):
+        got = _kernel_quotient(x, root, rinv)
+        want = x / np.float32(root)
+        assert np.array_equal(got, want)
+
+
+TINY = NetConfig(d_model=64, d_ff=128, heads=2, b_local=2, s_local=24,
+                 dtype="bfloat16")
+
+
+@pytest.mark.parametrize("dtype,calls", [("bfloat16", 1), ("float32", 0)])
+def test_forward_sends_bf16_to_the_wrapper_and_f32_to_the_plain_version(
+        monkeypatch, dtype, calls):
+    cfg = dataclasses.replace(TINY, dtype=dtype)
+    params = step.build_host_params(cfg)
+    x = torch.randn((2, 24, 64), generator=torch.Generator().manual_seed(3))
+    x = x.to(step.torch_dtype(cfg))
+    want = step._forward(params, x, cfg)
+    seen = []
+
+    def wrapper(q, k, v):
+        seen.append(q.dtype)
+        return causal_attention(q, k, v)
+
+    monkeypatch.setattr(step, "causal_attention", wrapper)
+    launches = causal_attention.launches
+    got = step._forward(params, x, cfg)
+    assert len(seen) == calls
+    assert torch.equal(got, want)
+    assert causal_attention.launches == launches   # the host launches nothing
+
+
+def test_forward_on_the_host_is_the_former_chain_bit_for_bit():
+    params = step.build_host_params(TINY)
+    x = torch.randn((2, 24, 64), generator=torch.Generator().manual_seed(4))
+    x = x.to(torch.bfloat16)
+    got = step._forward(params, x, TINY)
+    qkv = step.rms(x) @ params["wqkv"]
+    hx = x + former_chain(qkv, TINY.heads)
+    ff = torch.nn.functional.gelu(step.rms(hx) @ params["w_in"],
+                                  approximate="tanh") @ params["w_out"]
+    assert torch.equal(got, (hx + ff) @ params["w_head"])
+
+
+@pytest.mark.parametrize("dtype,dh,error", [
+    (torch.float16, 64, "bfloat16"),
+    (torch.float32, 64, "bfloat16"),
+    (torch.bfloat16, 520, "head width"),
+    (torch.bfloat16, 1024, "head width"),
+    (torch.bfloat16, 64, "unsupported device"),
+])
+def test_wrapper_refuses_what_the_kernels_do_not_take(dtype, dh, error):
+    q = torch.empty((1, 8, 2, dh), dtype=dtype, device="meta")
+    with pytest.raises(ValueError, match=error):
+        causal_attention(q, q, q)
+
+
+def test_wrapper_refuses_q_k_v_of_other_layouts():
+    q = torch.empty((1, 8, 2, 64), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="share shape and strides"):
+        causal_attention(q, q.transpose(1, 2).contiguous().transpose(1, 2), q)
+
+
+def test_built_widths_are_the_librarys():
+    # the widths and kinds the wrapper passes are those the C entry takes
+    src = (Path(attention.__file__).parents[1] / "csrc"
+           / "attention.cu").read_text()
+    entry = src[src.index("int ko_attention("):]
+    entry = entry[:entry.index("return cudaErrorInvalidValue")]
+    assert tuple(int(w) for w in re.findall(r"case (\d+):", entry)) \
+        == attention.WIDTHS
+    kinds = re.search(r"enum Kind \{([^}]*)\}", src).group(1)
+    assert {name: int(num) for name, num in re.findall(
+        r"k(\w+) = (\d)", kinds)} == {k.capitalize(): v for k, v in
+                                       attention.KINDS.items()}
+
+
+@pytest.mark.parametrize("dh,width", [(1, 64), (8, 64), (64, 64), (65, 128),
+                                      (96, 128), (200, 256), (512, 512)])
+def test_a_head_width_runs_at_the_next_built_width(dh, width):
+    assert attention.kernel_width(dh) == width
+
+
+@pytest.mark.parametrize("dh", [8, 96, 512])
+def test_laid_out_reads_the_step_views_in_place_and_pads_other_widths(dh):
+    qkv = _qkv(2, 9, 2, dh, torch.bfloat16).detach()
+    q, k, v = _heads(qkv, 2)
+    laid = attention._laid_out(q, k, v)
+    width = attention.kernel_width(dh)
+    for t, got in zip((q, k, v), laid):
+        if dh == width:             # in place: the split's own views
+            assert got.data_ptr() == t.data_ptr()
+            assert got.stride() == t.stride()
+        else:                       # a zero-padded contiguous copy
+            assert got.shape == (2, 9, 2, width) and got.is_contiguous()
+            assert torch.equal(got[..., :dh], t)
+            assert not got[..., dh:].any()
+    out = torch.arange(2 * 9 * 2 * width, dtype=torch.float32).reshape(
+        2, 9, 2, width)
+    assert torch.equal(attention._unpadded(out, dh),
+                       out[..., :dh].reshape(2, 9, 2 * dh))
+
+
+def test_misaligned_rows_are_copied_at_the_same_width():
+    qkv = _qkv(1, 5, 2, 64, torch.bfloat16).detach()
+    flat = torch.cat([torch.zeros(1, dtype=torch.bfloat16), qkv.flatten()])
+    q = flat[1:].view(qkv.shape)[..., :128].reshape(1, 5, 2, 64)
+    assert q.data_ptr() % 16
+    (got, *_) = attention._laid_out(q, q, q)
+    assert got.data_ptr() % 16 == 0 and got.is_contiguous()
+    assert torch.equal(got, q)
+
+
+@pytest.mark.parametrize("dtype,device,dh,refused", [
+    ("bfloat16", "cuda", 1024, True),
+    ("bfloat16", "cuda", 512, False),
+    ("bfloat16", "cuda", 96, False),
+    ("float32", "cuda", 1024, False),
+    ("bfloat16", "cpu", 1024, False),
+])
+def test_step_build_refuses_head_widths_the_kernels_lack(dtype, device, dh,
+                                                         refused):
+    cfg = NetConfig(d_model=dh, d_ff=64, heads=1, dtype=dtype)
+    mesh = SimpleNamespace(device_type=device)
+    if refused:
+        with pytest.raises(ValidationError, match="head widths up to 512"):
+            step.check_attention_width(mesh, cfg)
+    else:
+        step.check_attention_width(mesh, cfg)
+
+
+# ---- on the card --------------------------------------------------------
+
+@pytest.fixture()
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no host mode)")
+    return torch.device("cuda", 0)
+
+
+def _on_card(bsz, seq, h, dh, dev, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    qkv = torch.randn((bsz, seq, 3 * h * dh), device=dev, generator=gen)
+    qkv = qkv.bfloat16().requires_grad_()
+    do = torch.randn((bsz, seq, h * dh), device=dev, generator=gen).bfloat16()
+    return qkv, do
+
+
+def _run(fn, qkv, do, h):
+    q, k, v = _heads(qkv, h)
+    out = fn(q, k, v)
+    return (out.detach(), *torch.autograd.grad(out, (q, k, v), do))
+
+
+# Kernel against the plain version, both on the card, bf16 both ways. Both
+# round S to bf16 from f32 sums taken in other orders, and P at another
+# point (the kernel before normalising, the chain after); backward, the
+# chain rounds dO·vᵀ to bf16 and takes rowsum(dP∘P) where the kernel takes
+# rowsum(dO∘O). Each is a rounding of relative size 2^-9 or less on an
+# entry, summed over s random terms, so the error in norm stays below one
+# bf16 step (2^-8) of each tensor's norm, and no entry's error exceeds a
+# few steps of the tensor's largest entry. A wrong tile, row, mask or
+# scale is off by the order of the tensor itself.
+NORM_TOL, MAX_TOL = 2 ** -8, 2 ** -5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 100, 2, dh)
+                                   for dh in (8, 64, 96, 128, 256, 512)]
+                         + [(2, 333, 2, 512), (48, 1024, 8, 512),
+                            (6, 8192, 8, 512)])
+def test_kernels_match_the_plain_version_on_the_card(dev, shape):
+    bsz, seq, h, dh = shape
+    qkv, do = _on_card(bsz, seq, h, dh, dev)
+    got = _run(causal_attention, qkv, do, h)
+    want = _run(attention_reference, qkv, do, h)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("o", "dq", "dk", "dv"), got, want):
+        g, w = g.float(), w.float()
+        assert bool(torch.isfinite(g).all()), name
+        err = (g - w).norm() / w.norm()
+        worst = (g - w).abs().max() / w.abs().max()
+        assert err <= NORM_TOL and worst <= MAX_TOL, (name, float(err),
+                                                      float(worst))
+
+
+@pytest.mark.cuda
+def test_backward_is_bit_identical_run_to_run(dev):
+    qkv, do = _on_card(6, 2048, 8, 512, dev, seed=3)
+    first = _run(causal_attention, qkv, do, 8)
+    second = _run(causal_attention, qkv, do, 8)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,dh", [(torch.float16, 512),
+                                      (torch.float32, 512),
+                                      (torch.bfloat16, 520),
+                                      (torch.bfloat16, 1024)])
+def test_wrapper_raises_on_the_card_for_what_it_does_not_take(dev, dtype, dh):
+    q = torch.zeros((1, 64, 2, dh), dtype=dtype, device=dev)
+    launches = causal_attention.launches
+    with pytest.raises(ValueError):
+        causal_attention(q, q, q)
+    assert causal_attention.launches == launches
+
+
+@pytest.mark.cuda
+def test_forward_launches_the_kernels_once_forward_and_back(dev):
+    cfg = NetConfig(d_model=512, d_ff=1024, heads=8, b_local=2, s_local=256,
+                    dtype="bfloat16")
+    params = {k: t.to(dev).requires_grad_(t.dim() > 0)
+              for k, t in step.build_host_params(cfg).items()}
+    x = torch.randn((2, 256, 512), device=dev).bfloat16()
+    fwd, bwd = attention.LAUNCHES_FORWARD, attention.LAUNCHES_BACKWARD
+    before = causal_attention.launches
+    y = step._forward(params, x, cfg)
+    assert causal_attention.launches == before + fwd
+    y.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert causal_attention.launches == before + fwd + bwd
+    with torch.no_grad():
+        step._forward(params, x, cfg)
+    assert causal_attention.launches == before + 2 * fwd + bwd
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    step._forward({k: t.detach().float() for k, t in params.items()},
+                  x.float(), f32)
+    assert causal_attention.launches == before + 2 * fwd + bwd

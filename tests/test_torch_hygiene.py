@@ -72,7 +72,8 @@ def test_kernel_source_exists_and_builds_for_sm_90a():
 def test_ring_kernel_source_exists_and_builds_for_sm_90a():
     src = ROOT / "kubeoperator_tpu_torch" / "csrc" / "ring_all_gather.cu"
     assert src.is_file()
-    assert _build.kernel_names() == ["dma_read", "ring_all_gather"]
+    assert _build.kernel_names() == ["attention", "dma_read",
+                                     "ring_all_gather"]
     cmd = _build.nvcc_command(src, Path("out.so"))
     assert "arch=compute_90a,code=sm_90a" in cmd and str(src) in cmd
     assert _build.library_path("ring_all_gather").parent == ROOT / "build" / "kernels"
