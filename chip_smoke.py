@@ -114,6 +114,12 @@ Phases; any failure ends the run with a non-zero exit and no result line:
      (the causal half of 2 and 4 products at 989 TFLOP/s), the plain
      version's and SDPA's (`library_ms`, a yardstick the port never calls),
      and each of its kernels' registers, spills and shared memory
+ 20. K3 at latent attention's widths (q and k 192, v 128 a view of the kv
+     product, the scores times the softmax scale): against its plain
+     version at `LATENT_SHAPES` (the reference a block of heads at a time),
+     two backward runs bit-identical, then its forward and backward times
+     at the Kimi-K2 cell's shape beside their bounds (forward q·kᵀ at 192
+     and P·v at 128, backward two of each width)
 Phase 10 also runs, over its 2 processes, the bench twin's >= 2-rank
 branch (rank 0's line), Ulysses across the two cards, and then
 `dryrun_multichip(2, device="cuda")`; with 4 or more cards,
@@ -224,6 +230,14 @@ ATTENTION_SHAPES = ((2, 333, 2, 512), (48, 1024, 8, 512), (6, 8192, 8, 512))
 # one bf16 step of each tensor's norm, a few steps of its largest entry
 # (tests/test_torch_attention.py gives the same two limits)
 ATTENTION_NORM_TOL, ATTENTION_MAX_TOL = 2 ** -8, 2 ** -5
+# K3 at latent attention's widths: a ragged shape, then the Kimi-K2 cell's
+# (3 rows of 8192 tokens, 64 heads), [batch, seq, heads]; the scale is
+# 192^-1/2 · (0.1·ln 32 + 1)², which spreads the scores 1.81 times as wide
+# as 1/sqrt(dh) does, so the norm's limit doubles
+# (tests/test_torch_attention.py gives the same limits)
+LATENT_SHAPES = ((1, 333, 4), (3, 8192, 64))
+LATENT_NORM_TOL = 2 ** -7
+LATENT_SCALE = 192 ** -0.5 * (0.1 * math.log(32) + 1) ** 2
 
 
 def fail(msg: str) -> None:
@@ -1211,6 +1225,83 @@ def attention_phase(smi: str) -> dict:
     return dict(shapes=shapes, nvidia_smi=smi)
 
 
+def latent_attention_phase(smi: str) -> dict:
+    """Phase 20: K3 at (192, 128) against its plain version on the card,
+    bit-identical backward, its times at the Kimi-K2 cell's shape (module
+    docstring). Alone: ``python3 -c "import chip_smoke;
+    chip_smoke.latent_attention_phase('')"``."""
+    import torch
+
+    from kubeoperator_tpu_torch.ops import attention as k3
+
+    dev = torch.device("cuda", 0)
+    shapes = {}
+    for b, s, h in LATENT_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(s)
+        q, k = (torch.randn((b, s, h, 192), device=dev, generator=gen)
+                .bfloat16().requires_grad_() for _ in range(2))
+        kv = torch.randn((b, s, h, 256), device=dev, generator=gen).bfloat16()
+        kv.requires_grad_()
+        do = torch.randn((b, s, h, 128), device=dev, generator=gen).bfloat16()
+
+        def run():
+            out = k3.causal_attention(q, k, kv[..., 128:], LATENT_SCALE)
+            dq, dk, dkv = torch.autograd.grad(out, (q, k, kv), do.reshape(out.shape))
+            return [out.detach().view(b, s, h, 128), dq, dk, dkv[..., 128:]]
+
+        got, again = run(), run()
+        errs = {name: dict(num=0.0, den=0.0, max_num=0.0, max_den=0.0)
+                for name in ("o", "dq", "dk", "dv")}
+        for h0 in range(0, h, 16):          # the plain chain, 16 heads a time
+            sl = slice(h0, h0 + 16)
+            x = [t[:, :, sl].detach().requires_grad_()
+                 for t in (q, k, kv[..., 128:])]
+            out = k3.attention_reference(*x, LATENT_SCALE)
+            want = [out.detach().view(b, s, -1, 128),
+                    *torch.autograd.grad(out, x, do[:, :, sl].reshape(out.shape))]
+            for name, g, w in zip(errs, got, want):
+                g, w = g[:, :, sl].float(), w.float()
+                e = errs[name]
+                e["num"] += float((g - w).square().sum())
+                e["den"] += float(w.square().sum())
+                e["max_num"] = max(e["max_num"], float((g - w).abs().max()))
+                e["max_den"] = max(e["max_den"], float(w.abs().max()))
+            del x, out, want
+        for name, g, a in zip(errs, got, again):
+            e = errs[name]
+            errs[name] = dict(norm=math.sqrt(e["num"] / e["den"]),
+                              max=e["max_num"] / e["max_den"],
+                              bit_identical=bool(torch.equal(g, a)))
+            if not (bool(torch.isfinite(g).all())
+                    and errs[name]["norm"] <= LATENT_NORM_TOL
+                    and errs[name]["max"] <= ATTENTION_MAX_TOL
+                    and errs[name]["bit_identical"]):
+                fail(f"K3 at {(b, s, h, 192, 128)}: {name} {errs[name]}")
+        del got, again
+        torch.cuda.empty_cache()
+        rec = dict(errors=errs)
+        if (b, s) != LATENT_SHAPES[0][:2]:
+            qd, kd, vd = q.detach(), k.detach(), kv.detach()[..., 128:]
+            o, lse = k3._launch_forward(qd, kd, vd, 192, LATENT_SCALE)
+            unit = b * h * s * (s + 1)      # a causal product per unit width
+            rec.update(
+                fwd_ms=event_ms(lambda: k3._launch_forward(
+                    qd, kd, vd, 192, LATENT_SCALE), 5, 3),
+                bwd_ms=event_ms(lambda: k3._launch_backward(
+                    qd, kd, vd, o, lse, do, 192, LATENT_SCALE), 5, 1),
+                fwd_bound_ms=unit * (192 + 128) / 989e12 * 1e3,
+                bwd_bound_ms=2 * unit * (192 + 128) / 989e12 * 1e3,
+                resources={n: r for n, r in k3.kernel_resources().items()
+                           if "x" in n or n == "delta128"})
+            del qd, kd, vd, o, lse
+        shapes[f"{b}x{s}x{h}x192x128"] = rec
+        print(f"phase 20: K3 at {(b, s, h, 192, 128)} on {smi}: "
+              f"{json.dumps(rec)}", flush=True)
+        del q, k, kv, do
+        torch.cuda.empty_cache()
+    return dict(shapes=shapes, nvidia_smi=smi)
+
+
 def fwd_and_bwd(rec: dict, name: str) -> float | None:
     """A phase 19 yardstick's forward plus backward ms (None if it failed)."""
     if f"{name}_fwd_ms" not in rec:
@@ -1610,6 +1701,10 @@ def main(argv: list[str] | None = None) -> int:
     torch.cuda.empty_cache()
     k3 = attention_phase(smi)
     long = k3["shapes"]["6x8192x8x512"]
+
+    # 20. K3 at latent attention's widths
+    torch.cuda.empty_cache()
+    latent = latent_attention_phase(smi)
     n8 = ring_times["times"][8]
     forms = ["one card, virtual ranks"] + (["process per card"] if multi else [])
     kernels = {"kernels": [{
@@ -1650,7 +1745,7 @@ def main(argv: list[str] | None = None) -> int:
                   train_path_launches=train_launches, workload=workload,
                   workload_launches=workload_launches, bench=bench_rec,
                   graft=graft, dcn_ulysses=dcn_ulysses, workload_chain=chain,
-                  drills=drill, attention=k3,
+                  drills=drill, attention=k3, latent_attention=latent,
                   seconds=time.perf_counter() - t_start)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -7,8 +7,9 @@
 // of scores in registers. `ops/attention.py` holds the wrapper, the plain
 // version and the dispatch.
 //
-// Function, for bf16 q, k, v [b, s, h, dh] (row strides passed, dh
-// contiguous) and one head width DH the library is built for:
+// Function, for bf16 q, k [b, s, h, DQK] and v [b, s, h, DV] (head columns
+// contiguous; at equal widths one set of strides for all three, at two
+// widths each its own) at a pair of head widths the library is built for:
 //
 //     S = bf16(q·kᵀ) / sqrt(dh)   (f32 sums, rounded to bf16, widened, then
 //                                  divided as a correctly rounded f32 division)
@@ -17,6 +18,11 @@
 //
 // and its gradients: D = rowsum(dO∘o) (f32), P = exp(S - lse),
 // dS = bf16(P∘(dO·vᵀ - D) / sqrt(dh)), dq = dS·k, dk = dSᵀ·q, dv = bf16(P)ᵀ·dO.
+// Widths: DQK = DV = dh in 64, 128, 256, 512 (the dense stage); and DQK 192,
+// DV 128 (latent attention: 128 columns without position and 64 rotated),
+// where the instantiation's SCALE replaces the division by a product with a
+// given softmax scale, S = bf16(q·kᵀ)·scale and dS = bf16(P∘(dO·vᵀ - D)·scale),
+// each one f32 multiply as the chain's.
 //
 // Launches. Forward: one (kind kFwd), writing o and lse. Backward: four, with
 // no atomics, so the gradients are the same bits from run to run: D
@@ -46,6 +52,8 @@
 //   dV:  A1 = k,  B1 = q,  B2 = dO, C = dO      acc = dv
 //   dK:  A1 = k,  A2 = v,  B1 = q,  B2 = dO, C = q   acc = dk
 //   dQ:  A1 = q,  A2 = dO, B1 = k,  B2 = v,  C = k   acc = dq
+// With two widths, held and streamed tiles of q and k (and of dq's C) take
+// DQK columns and those of v and dO DV; the accumulator takes C's width.
 // dh = 512 sets the tiles: a [64, 512] f32 accumulator is 128 KB, half the
 // register file, so at that width two warpgroups share it: warpgroup c owns
 // dh columns 256c..256c+255 of all 64 rows (warp r of it rows 16r..16r+15).
@@ -74,6 +82,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kBM = 64;    // rows of the held tile: 4 row groups of 16
@@ -87,35 +97,52 @@ struct Args {
   const __nv_bfloat16* q;
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
-  const __nv_bfloat16* dout;   // dO, [b, s, h, DH] contiguous (backward)
+  const __nv_bfloat16* dout;   // dO, [b, s, h, DV] contiguous (backward)
   const float* lse;            // [b, h, s] (backward)
   const float* delta;          // [b, h, s] (kDk, kDq)
-  __nv_bfloat16* out;          // o, dq, dk or dv: [b, s, h, DH] contiguous
+  __nv_bfloat16* out;          // o, dv: [b, s, h, DV]; dq, dk: [b, s, h, DQK]
   float* lse_out;              // [b, h, s] (forward)
-  long long sqb, sqs, sqh;     // q, k, v strides in elements
+  long long sqb, sqs, sqh;     // q strides in elements (k and v too at equal widths)
   int bh, heads, seq;
-  float root, rinv;
+  float root, rinv;            // sqrt(dh) and its reciprocal; the scale in rinv with SCALE
 };
 
-template <int KIND, int DH>
+// two widths: k's and v's own strides too (a kernel of equal widths takes
+// Args alone, whose size its register allocation depends on)
+struct PairArgs : Args {
+  long long skb, sks, skh;
+  long long svb, svs, svh;
+};
+
+template <int DQK, int DV>
+using ArgsOf = std::conditional_t<DQK == DV, Args, PairArgs>;
+
+template <int KIND, int DQK, int DV>
 struct Plan {
-  static constexpr int kWn = DH == 512 ? 2 : 1;   // warps sharing the columns
+  static constexpr int kWn = DQK == 512 ? 2 : 1;  // warps sharing the columns
   static constexpr int kWarps = 4 * kWn;
   static constexpr int kThreads = 32 * kWarps;
-  static constexpr int kCols = DH / kWn;           // dh columns of a warp
   static constexpr bool kTwo = KIND == kDk || KIND == kDq;
+  // the accumulator's width: o and dv take v's, dq and dk q's
+  static constexpr int kAcc = kTwo ? DQK : DV;
+  static constexpr int kCols = kAcc / kWn;         // accumulator columns of a warp
+  static constexpr int kColsQk = DQK / kWn;        // summed columns of q·kᵀ, dS·k
+  static constexpr int kColsV = DV / kWn;          // summed columns of dO·vᵀ
   // rows of a streamed tile: 64, or 32 where two held tiles leave less room
   static constexpr int kBn = kTwo ? 32 : 64;
-  static constexpr int kHeldBytes = kBM * DH * 2;
-  static constexpr int kTileBytes = kBn * DH * 2;
-  static constexpr int kHeld = (kTwo ? 2 : 1) * kHeldBytes;
-  static constexpr int kStage = 2 * kTileBytes;
+  // held tiles: A1 (DQK columns), A2 (DV columns, kDk and kDq); streamed
+  // tiles: B1 (DQK columns), B2 (DV columns)
+  static constexpr int kHeldBytes = kBM * DQK * 2;
+  static constexpr int kTileBytes = kBn * DQK * 2;
+  static constexpr int kHeld = kHeldBytes + (kTwo ? kBM * DV * 2 : 0);
+  static constexpr int kStage = kTileBytes + kBn * DV * 2;
   static constexpr int kPartial = kWarps * 16 * kBn * 4;   // one score product
   static constexpr int kTrade = kWn > 1 ? (kTwo ? 2 : 1) * kPartial : 0;
   // + 1 KB to align the tiles to the swizzle's 1024-byte period
   static constexpr int kSmem = kHeld + kStage + kTrade + 1024;
   static_assert(kSmem <= kMaxSmem, "tiles exceed shared memory");
-  static_assert(DH % 64 == 0, "tiles are blocks of 64 columns");
+  static_assert(DQK % 64 == 0 && DV % 64 == 0, "tiles are blocks of 64 columns");
+  static_assert(kWn == 1 || DQK == DV, "two warpgroups split one width");
 };
 
 // byte offset of 16-byte chunk `chunk` of row `row` in a ROWS-row tile:
@@ -323,17 +350,25 @@ __device__ __forceinline__ void scores(float s[BN / 8][4], uint32_t a,
 }
 
 // acc (this warp's 16 rows by KC columns from c0) += p (16 x kBN, bf16
-// fragments) times rows 0..kBN of `c` (MN-major)
+// fragments) times rows 0..kBN of `c` (MN-major); 192 columns as 128 + 64
 template <int KC, int BN>
 __device__ __forceinline__ void accumulate(float acc[KC / 8][4],
                                            uint32_t p[BN / 16][4],
                                            uint32_t c, int c0) {
   wg_fence();
 #pragma unroll
-  for (int kk = 0; kk < BN / 16; ++kk)
-    wgmma_rs<KC>(&acc[0][0], p[kk],
-                 smem_desc(c + (c0 >> 6) * (BN * 128) + kk * 16 * 128,
-                           BN * 128, 1024));
+  for (int kk = 0; kk < BN / 16; ++kk) {
+    if constexpr (KC == 192) {
+      const uint32_t at = c + (c0 >> 6) * (BN * 128) + kk * 16 * 128;
+      wgmma_rs<128>(&acc[0][0], p[kk], smem_desc(at, BN * 128, 1024));
+      wgmma_rs<64>(&acc[16][0], p[kk],
+                   smem_desc(at + 2 * (BN * 128), BN * 128, 1024));
+    } else {
+      wgmma_rs<KC>(&acc[0][0], p[kk],
+                   smem_desc(c + (c0 >> 6) * (BN * 128) + kk * 16 * 128,
+                             BN * 128, 1024));
+    }
+  }
   wg_commit_and_wait();
 }
 
@@ -373,10 +408,18 @@ __device__ __forceinline__ void to_fragments(float s[BN / 8][4],
   }
 }
 
-template <int KIND, int DH>
-__global__ void __launch_bounds__(Plan<KIND, DH>::kThreads, 1)
-    attention_kernel(const Args a) {
-  using P = Plan<KIND, DH>;
+// S or dS from an f32 value: divided by sqrt(dh), or with SCALE multiplied
+// by the scale (see the header)
+template <bool SCALE>
+__device__ __forceinline__ float scaled(float x, float root, float rinv) {
+  if constexpr (SCALE) return __fmul_rn(x, rinv);
+  else return divide(x, root, rinv);
+}
+
+template <int KIND, int DQK, int DV, bool SCALE>
+__global__ void __launch_bounds__(Plan<KIND, DQK, DV>::kThreads, 1)
+    attention_kernel(const ArgsOf<DQK, DV> a) {
+  using P = Plan<KIND, DQK, DV>;
   constexpr int KC = P::kCols;
   constexpr int kBN = P::kBn;
   constexpr bool kHoldsQ = KIND == kFwd || KIND == kDq;
@@ -399,41 +442,53 @@ __global__ void __launch_bounds__(Plan<KIND, DH>::kThreads, 1)
   const int seq = a.seq;
   // the held tile's first row; Q-holding kinds start with the longest walks
   const int r0 = (kHoldsQ ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * kBM;
+  // equal widths: q, k and v share q's strides (views of one qkv product
+  // or padded copies), dO and the output one layout; two widths: each its own
+  constexpr bool kOne = DQK == DV;
   const long long in_off = b * a.sqb + h * a.sqh;
-  const long long out_off = (long long)b * seq * a.heads * DH + h * DH;
-  const long long out_row = (long long)a.heads * DH;
+  const long long out_off = (long long)b * seq * a.heads * P::kAcc + h * P::kAcc;
+  const long long out_row = (long long)a.heads * P::kAcc;
+  const long long do_row = kOne ? out_row : (long long)a.heads * DV;
+  long long sks = a.sqs, svs = a.sqs;
   const __nv_bfloat16* qg = a.q + in_off;
   const __nv_bfloat16* kg = a.k + in_off;
   const __nv_bfloat16* vg = a.v + in_off;
-  const __nv_bfloat16* dg = a.dout + out_off;
+  if constexpr (!kOne) {
+    sks = a.sks;
+    svs = a.svs;
+    kg = a.k + b * a.skb + h * a.skh;
+    vg = a.v + b * a.svb + h * a.svh;
+  }
+  const __nv_bfloat16* dg =
+      a.dout + (kOne ? out_off : (long long)b * seq * do_row + h * DV);
 
   // held tiles and streamed slabs, by kind
   const __nv_bfloat16 *h1, *h2 = nullptr, *s1, *s2;
   long long h1s, h2s = 0, s1s, s2s;
   if (KIND == kFwd) {
-    h1 = qg; h1s = a.sqs; s1 = kg; s1s = a.sqs; s2 = vg; s2s = a.sqs;
+    h1 = qg; h1s = a.sqs; s1 = kg; s1s = sks; s2 = vg; s2s = svs;
   } else if (KIND == kDv) {
-    h1 = kg; h1s = a.sqs; s1 = qg; s1s = a.sqs; s2 = dg; s2s = out_row;
+    h1 = kg; h1s = sks; s1 = qg; s1s = a.sqs; s2 = dg; s2s = do_row;
   } else if (KIND == kDk) {
-    h1 = kg; h1s = a.sqs; h2 = vg; h2s = a.sqs;
-    s1 = qg; s1s = a.sqs; s2 = dg; s2s = out_row;
+    h1 = kg; h1s = sks; h2 = vg; h2s = svs;
+    s1 = qg; s1s = a.sqs; s2 = dg; s2s = do_row;
   } else {
-    h1 = qg; h1s = a.sqs; h2 = dg; h2s = out_row;
-    s1 = kg; s1s = a.sqs; s2 = vg; s2s = a.sqs;
+    h1 = qg; h1s = a.sqs; h2 = dg; h2s = do_row;
+    s1 = kg; s1s = sks; s2 = vg; s2s = svs;
   }
   // streamed tiles: K/V from 0 up to the diagonal, or Q/dO from it down
   const int first = kHoldsQ ? 0 : r0;
   const int last = kHoldsQ ? min(r0 + kBM, seq) : seq;
   const int n_tiles = (last - first + kBN - 1) / kBN;
 
-  load_tile<DH, kBM, P::kThreads>(held1, h1, h1s, r0, seq, tid);
-  if (P::kTwo) load_tile<DH, kBM, P::kThreads>(held2, h2, h2s, r0, seq, tid);
+  load_tile<DQK, kBM, P::kThreads>(held1, h1, h1s, r0, seq, tid);
+  if (P::kTwo) load_tile<DV, kBM, P::kThreads>(held2, h2, h2s, r0, seq, tid);
   // the operand read first goes in the older group: b1 for kFwd and kDv,
   // b2 (read by dP, while b1 arrives) for kDk and kDq
-  if (!P::kTwo) load_tile<DH, kBN, P::kThreads>(b1, s1, s1s, first, seq, tid);
-  load_tile<DH, kBN, P::kThreads>(b2, s2, s2s, first, seq, tid);
+  if (!P::kTwo) load_tile<DQK, kBN, P::kThreads>(b1, s1, s1s, first, seq, tid);
+  load_tile<DV, kBN, P::kThreads>(b2, s2, s2s, first, seq, tid);
   cp_commit();
-  if (P::kTwo) load_tile<DH, kBN, P::kThreads>(b1, s1, s1s, first, seq, tid);
+  if (P::kTwo) load_tile<DQK, kBN, P::kThreads>(b1, s1, s1s, first, seq, tid);
   cp_commit();
 
   // per-row softmax statistics of the held rows (kFwd: running max and
@@ -471,12 +526,12 @@ __global__ void __launch_bounds__(Plan<KIND, DH>::kThreads, 1)
     float s[kBN / 8][4] = {}, dp[kBN / 8][4] = {};
     wg_fence();
     if (P::kTwo) {
-      scores<KC, kBN>(dp, held2, b2, wc * KC);
+      scores<P::kColsV, kBN>(dp, held2, b2, wc * P::kColsV);
       cp_wait<0>();                   // b1 of this tile
       fence_async_shared();
       __syncthreads();
     }
-    scores<KC, kBN>(s, held1, b1, wc * KC);
+    scores<P::kColsQk, kBN>(s, held1, b1, wc * P::kColsQk);
     // per column statistics of the streamed rows (kDv, kDk), read while
     // the products run
     float col_lse[kBN / 8][2], col_d[kBN / 8][2];
@@ -494,8 +549,8 @@ __global__ void __launch_bounds__(Plan<KIND, DH>::kThreads, 1)
     wg_commit_and_wait();
     __syncthreads();
     if (more) {
-      if (P::kTwo) load_tile<DH, kBN, P::kThreads>(b2, s2, s2s, s0 + kBN, seq, tid);
-      else load_tile<DH, kBN, P::kThreads>(b1, s1, s1s, s0 + kBN, seq, tid);
+      if (P::kTwo) load_tile<DV, kBN, P::kThreads>(b2, s2, s2s, s0 + kBN, seq, tid);
+      else load_tile<DQK, kBN, P::kThreads>(b1, s1, s1s, s0 + kBN, seq, tid);
     }
     cp_commit();
     if (P::kWn > 1) {
@@ -513,7 +568,7 @@ __global__ void __launch_bounds__(Plan<KIND, DH>::kThreads, 1)
     for (int jn = 0; jn < kBN / 8; ++jn)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float x = divide(bf16_round(s[jn][e]), a.root, a.rinv);
+        float x = scaled<SCALE>(bf16_round(s[jn][e]), a.root, a.rinv);
         const int r = row[e >> 1], c = s0 + jn * 8 + 2 * t + (e & 1);
         if (diag && (kHoldsQ ? c > r : c < r)) x = kMask;
         s[jn][e] = x;
@@ -560,7 +615,7 @@ __global__ void __launch_bounds__(Plan<KIND, DH>::kThreads, 1)
           float p = fexp(s[jn][e] - lse);
           if (P::kTwo) {
             const float d = kHoldsQ ? l_i[e >> 1] : col_d[jn][e & 1];
-            p = divide(p * (dp[jn][e] - d), a.root, a.rinv);
+            p = scaled<SCALE>(p * (dp[jn][e] - d), a.root, a.rinv);
           }
           s[jn][e] = p;
         }
@@ -575,8 +630,8 @@ __global__ void __launch_bounds__(Plan<KIND, DH>::kThreads, 1)
     accumulate<KC, kBN>(acc, pf, P::kTwo ? b1 : b2, wc * KC);
     __syncthreads();
     if (more) {
-      if (P::kTwo) load_tile<DH, kBN, P::kThreads>(b1, s1, s1s, s0 + kBN, seq, tid);
-      else load_tile<DH, kBN, P::kThreads>(b2, s2, s2s, s0 + kBN, seq, tid);
+      if (P::kTwo) load_tile<DQK, kBN, P::kThreads>(b1, s1, s1s, s0 + kBN, seq, tid);
+      else load_tile<DV, kBN, P::kThreads>(b2, s2, s2s, s0 + kBN, seq, tid);
     }
     cp_commit();
   }
@@ -633,38 +688,41 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-template <int KIND, int DH>
-int launch(const Args& a, cudaStream_t stream) {
-  using P = Plan<KIND, DH>;
+template <int KIND, int DQK, int DV, bool SCALE>
+int launch(const PairArgs& a, cudaStream_t stream) {
+  using P = Plan<KIND, DQK, DV>;
   // per device, so set at every launch (about a microsecond)
   const cudaError_t e = cudaFuncSetAttribute(
-      attention_kernel<KIND, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      P::kSmem);
+      attention_kernel<KIND, DQK, DV, SCALE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmem);
   if (e != cudaSuccess) return e;
   dim3 grid((a.seq + kBM - 1) / kBM, a.bh < 65535 ? a.bh : 65535,
             (a.bh + 65534) / 65535);
-  attention_kernel<KIND, DH><<<grid, P::kThreads, P::kSmem, stream>>>(a);
+  attention_kernel<KIND, DQK, DV, SCALE><<<grid, P::kThreads, P::kSmem, stream>>>(
+      static_cast<const ArgsOf<DQK, DV>&>(a));
   return cudaGetLastError();
 }
 
-template <int DH>
-int launch_kind(int kind, const Args& a, cudaStream_t stream) {
+template <int DQK, int DV, bool SCALE>
+int launch_kind(int kind, const PairArgs& a, cudaStream_t stream) {
   switch (kind) {
-    case kFwd: return launch<kFwd, DH>(a, stream);
-    case kDv: return launch<kDv, DH>(a, stream);
-    case kDk: return launch<kDk, DH>(a, stream);
-    case kDq: return launch<kDq, DH>(a, stream);
+    case kFwd: return launch<kFwd, DQK, DV, SCALE>(a, stream);
+    case kDv: return launch<kDv, DQK, DV, SCALE>(a, stream);
+    case kDk: return launch<kDk, DQK, DV, SCALE>(a, stream);
+    case kDq: return launch<kDq, DQK, DV, SCALE>(a, stream);
   }
   return cudaErrorInvalidValue;
 }
 
 template <int KIND>
-int smem_of(int dh) {
-  switch (dh) {
-    case 64: return Plan<KIND, 64>::kSmem;
-    case 128: return Plan<KIND, 128>::kSmem;
-    case 256: return Plan<KIND, 256>::kSmem;
-    case 512: return Plan<KIND, 512>::kSmem;
+int smem_of(int dqk, int dv) {
+  if (dqk == 192 && dv == 128) return Plan<KIND, 192, 128>::kSmem;
+  if (dqk != dv) return -1;
+  switch (dqk) {
+    case 64: return Plan<KIND, 64, 64>::kSmem;
+    case 128: return Plan<KIND, 128, 128>::kSmem;
+    case 256: return Plan<KIND, 256, 256>::kSmem;
+    case 512: return Plan<KIND, 512, 512>::kSmem;
   }
   return -1;
 }
@@ -673,34 +731,41 @@ int smem_of(int dh) {
 
 extern "C" {
 
-// One launch of kind `kind` (0 forward, 1 dV, 2 dK, 3 dQ) at head width
-// `dh` (64, 128, 256 or 512). Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for a kind or width the library does not hold.
-int ko_attention(int kind, int dh, const void* q, const void* k,
+// One launch of kind `kind` (0 forward, 1 dV, 2 dK, 3 dQ) at head widths
+// `dqk` = `dv` (64, 128, 256 or 512; S divided by `root`) or (`dqk`, `dv`) =
+// (192, 128) (S times the scale `rinv`). Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a kind or widths the library does not hold.
+int ko_attention(int kind, int dqk, int dv, const void* q, const void* k,
                  const void* v, const void* dout, const void* lse,
                  const void* delta, void* out, void* lse_out, long long sqb,
-                 long long sqs, long long sqh, int batch, int heads, int seq,
-                 float root, float rinv, void* stream) {
-  Args a{static_cast<const __nv_bfloat16*>(q),
-         static_cast<const __nv_bfloat16*>(k),
-         static_cast<const __nv_bfloat16*>(v),
-         static_cast<const __nv_bfloat16*>(dout),
-         static_cast<const float*>(lse),
-         static_cast<const float*>(delta),
-         static_cast<__nv_bfloat16*>(out),
-         static_cast<float*>(lse_out),
-         sqb, sqs, sqh, batch * heads, heads, seq, root, rinv};
+                 long long sqs, long long sqh, long long skb, long long sks,
+                 long long skh, long long svb, long long svs, long long svh,
+                 int batch, int heads, int seq, float root, float rinv,
+                 void* stream) {
+  PairArgs a{{static_cast<const __nv_bfloat16*>(q),
+               static_cast<const __nv_bfloat16*>(k),
+               static_cast<const __nv_bfloat16*>(v),
+               static_cast<const __nv_bfloat16*>(dout),
+               static_cast<const float*>(lse),
+               static_cast<const float*>(delta),
+               static_cast<__nv_bfloat16*>(out),
+               static_cast<float*>(lse_out),
+               sqb, sqs, sqh, batch * heads, heads, seq, root, rinv},
+              skb, sks, skh, svb, svs, svh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dh) {
-    case 64: return launch_kind<64>(kind, a, s);
-    case 128: return launch_kind<128>(kind, a, s);
-    case 256: return launch_kind<256>(kind, a, s);
-    case 512: return launch_kind<512>(kind, a, s);
+  if (dqk == 192 && dv == 128) return launch_kind<192, 128, true>(kind, a, s);
+  if (dqk != dv) return cudaErrorInvalidValue;
+  switch (dqk) {
+    case 64: return launch_kind<64, 64, false>(kind, a, s);
+    case 128: return launch_kind<128, 128, false>(kind, a, s);
+    case 256: return launch_kind<256, 256, false>(kind, a, s);
+    case 512: return launch_kind<512, 512, false>(kind, a, s);
   }
   return cudaErrorInvalidValue;
 }
 
-// D = rowsum(o∘dO) for contiguous [b, s, h, dh] o and dO into [b, h, s].
+// D = rowsum(o∘dO) for contiguous [b, s, h, dh] o and dO into [b, h, s]
+// (dh: v's width).
 int ko_attention_delta(int dh, const void* o, const void* dout, void* delta,
                        int batch, int heads, int seq, void* stream) {
   const long long rows = (long long)batch * seq * heads;
@@ -719,14 +784,14 @@ int ko_attention_delta(int dh, const void* o, const void* dout, void* delta,
   return cudaGetLastError();
 }
 
-// Dynamic shared memory bytes a block of `kind` takes at width `dh` (-1 for
-// a width the library does not hold).
-int ko_attention_smem(int kind, int dh) {
+// Dynamic shared memory bytes a block of `kind` takes at widths (`dqk`,
+// `dv`) (-1 for widths the library does not hold).
+int ko_attention_smem(int kind, int dqk, int dv) {
   switch (kind) {
-    case kFwd: return smem_of<kFwd>(dh);
-    case kDv: return smem_of<kDv>(dh);
-    case kDk: return smem_of<kDk>(dh);
-    case kDq: return smem_of<kDq>(dh);
+    case kFwd: return smem_of<kFwd>(dqk, dv);
+    case kDv: return smem_of<kDv>(dqk, dv);
+    case kDk: return smem_of<kDk>(dqk, dv);
+    case kDq: return smem_of<kDq>(dqk, dv);
   }
   return -1;
 }

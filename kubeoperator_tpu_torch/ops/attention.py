@@ -1,8 +1,12 @@
-"""Fused causal attention of the dense stage (kernel K3).
+"""Fused causal attention of the tenant models (kernel K3).
 
 `causal_attention(q, k, v)` is the attention of
 `workloads/step.py::_forward`: q, k and v are [b, s, h, dh] (in the step,
 views of one qkv product with row stride 3·h·dh), the output [b, s, h·dh].
+`causal_attention(q, k, v, scale)` is latent attention's
+(`workloads/mla_moe.py`): q and k [b, s, h, 192], v [b, s, h, 128] (a view
+of the kv product, its own strides), the scores times `scale` in place of
+the division by sqrt(dh), the output [b, s, h·128].
 A bf16 CUDA input goes through hand-written CUDA kernels
 (`csrc/attention.cu`, built by `ops/_build.py`; its header note gives the
 design), one launch forward and four back, held in a
@@ -23,11 +27,14 @@ Source note:
   memory; at dh = 512 far above the card's 295 operations a byte, and in
   practice held back by re-reading the streamed tiles from L2 and by the
   softmax running between the products (the kernels' header).
-* The library is built for head widths `WIDTHS`. A head width between them
-  runs at the next one up, q, k and v copied into zero-padded [b, s, h, w]
-  tensors (zero columns add exact zeros to every sum); so does a layout
-  whose rows are not 16-byte aligned. Widths above `MAX_DH` raise: a
-  [64, dh] f32 accumulator would not fit the register file.
+* The library is built for head widths `WIDTHS` (q, k and v alike) and
+  for the pairs of q·k and v widths in `PAIRS`, which take a scale. A head
+  width between the `WIDTHS` runs at the next one up, q, k and v copied
+  into zero-padded [b, s, h, w] tensors (zero columns add exact zeros to
+  every sum); so does a layout whose rows are not 16-byte aligned (a pair
+  is copied at its own widths). Widths above `MAX_DH` raise: a [64, dh]
+  f32 accumulator would not fit the register file; so does a pair not in
+  `PAIRS`, or a scale with equal widths.
 * Same rounding points as the chain, except where the kernel normalises
   (after P·v, the chain before its cast of P to bf16); see the kernels'
   header.
@@ -46,6 +53,7 @@ import torch
 from kubeoperator_tpu_torch.ops import _build
 
 WIDTHS = (64, 128, 256, 512)   # head widths the library is built for
+PAIRS = ((192, 128),)          # (q·k width, v width) built with a scale
 MAX_DH = WIDTHS[-1]
 MASK = -1e30
 KINDS = {"fwd": 0, "dv": 1, "dk": 2, "dq": 3}
@@ -53,20 +61,29 @@ LAUNCHES_FORWARD = 1
 LAUNCHES_BACKWARD = 4          # D, dV, dK, dQ
 
 
-def attention_reference(q: torch.Tensor, k: torch.Tensor,
-                        v: torch.Tensor) -> torch.Tensor:
+def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        scale: float | None = None) -> torch.Tensor:
     """Plain version: the dense stage's eager chain, operation for
     operation. The logits product comes out in q's type, is widened to f32
     and only then divided by sqrt(dh) (a 0-d tensor on q's device: a CUDA
     kernel divides by a host scalar through its reciprocal, which rounds
-    differently); the causal mask is -1e30; softmax in f32, cast back."""
+    differently), or multiplied by `scale` as an f32 0-d tensor when one is
+    given; the causal mask is -1e30; softmax in f32, cast back. v may be
+    narrower than q and k: the output is [b, s, h·(v's width)]."""
     bsz, seq, h, dh = q.shape
-    root = torch.full((), math.sqrt(dh), dtype=torch.float32, device=q.device)
-    logits = torch.einsum("bqhe,bkhe->bhqk", q, k).float() / root
+    logits = torch.einsum("bqhe,bkhe->bhqk", q, k).float()
+    if scale is None:
+        root = torch.full((), math.sqrt(dh), dtype=torch.float32,
+                          device=q.device)
+        logits = logits / root
+    else:
+        logits = logits * torch.full((), scale, dtype=torch.float32,
+                                     device=q.device)
     causal = torch.ones((seq, seq), dtype=torch.bool, device=q.device).tril()
     logits = torch.where(causal, logits, MASK)
     attn = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bkhe->bqhe", attn, v).reshape(bsz, seq, h * dh)
+    return torch.einsum("bhqk,bkhe->bqhe", attn, v).reshape(
+        bsz, seq, h * v.shape[3])
 
 
 def kernel_width(dh: int) -> int:
@@ -74,41 +91,52 @@ def kernel_width(dh: int) -> int:
     return next(w for w in WIDTHS if w >= dh)
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           scale: float | None = None) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != torch.bfloat16:
             raise ValueError(f"{name} must be bfloat16 on CUDA, got {t.dtype}")
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if t.shape != q.shape or t.stride() != q.stride():
+        if scale is None and (t.shape != q.shape or t.stride() != q.stride()):
             raise ValueError(
                 f"q, k and v must share shape and strides, got {name} "
                 f"{tuple(t.shape)} {t.stride()}, "
                 f"q {tuple(q.shape)} {q.stride()}")
+        width = t.shape[3:] if name == "v" else q.shape[3:]
+        if scale is not None and t.shape != q.shape[:3] + width:
+            raise ValueError(
+                f"q, k and v must share shape (v its own head width) with a "
+                f"scale, got {name} {tuple(t.shape)}, q {tuple(q.shape)}")
     if q.dim() != 4 or q.numel() == 0:
         raise ValueError(f"q must be a non-empty [b, s, h, dh], got "
                          f"{tuple(q.shape)}")
-    if q.shape[3] > MAX_DH:
+    if scale is None and q.shape[3] > MAX_DH:
         raise ValueError(f"head width {q.shape[3]} is above {MAX_DH}, the "
                          f"widest the kernels are built for")
+    if scale is not None and (q.shape[3], v.shape[3]) not in PAIRS:
+        raise ValueError(f"head widths {(q.shape[3], v.shape[3])} with a "
+                         f"scale: the kernels are built for {PAIRS}")
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
 
 
-def causal_attention(q: torch.Tensor, k: torch.Tensor,
-                     v: torch.Tensor) -> torch.Tensor:
-    """Causal softmax attention of [b, s, h, dh] q, k, v as [b, s, h·dh]:
+def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     scale: float | None = None) -> torch.Tensor:
+    """Causal softmax attention of [b, s, h, dh] q, k, v as [b, s, h·dh]
+    (with `scale`: v of a pair's narrower width, the output at v's width):
     the kernels for bf16 CUDA tensors (saving what backward needs only
     where a gradient is wanted), the plain version for CPU tensors;
     ValueError for any other input."""
     if q.device.type == "cpu":
-        return attention_reference(q, k, v)
-    _check(q, k, v)
+        return attention_reference(q, k, v, scale)
+    _check(q, k, v, scale)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return _FusedCausalAttention.apply(q, k, v)
-    dh = q.shape[3]
-    return _unpadded(_launch_forward(*_laid_out(q, k, v), dh)[0], dh)
+        return _FusedCausalAttention.apply(q, k, v, scale)
+    dh = v.shape[3]
+    return _unpadded(_launch_forward(*_laid_out(q, k, v, scale), q.shape[3],
+                                     scale)[0], dh)
 
 
 causal_attention.launches = 0
@@ -116,21 +144,24 @@ causal_attention.launches = 0
 
 class _FusedCausalAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v):
-        dh = q.shape[3]
-        q, k, v = _laid_out(q, k, v)
-        o, lse = _launch_forward(q, k, v, dh)
+    def forward(ctx, q, k, v, scale):
+        dh, dv = q.shape[3], v.shape[3]
+        q, k, v = _laid_out(q, k, v, scale)
+        o, lse = _launch_forward(q, k, v, dh, scale)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.dh = dh
-        return _unpadded(o, dh)
+        ctx.dh, ctx.scale = dh, scale
+        return _unpadded(o, dv)
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        dh = ctx.dh
+        dh, scale = ctx.dh, ctx.scale
+        if scale is not None:           # a pair: its own widths, no padding
+            do = _padded(do.reshape(o.shape), o.shape[3])
+            return (*_launch_backward(q, k, v, o, lse, do, dh, scale), None)
         do = _padded(do.reshape(*o.shape[:3], dh), o.shape[3])
-        return tuple(g if g.shape[3] == dh else g[..., :dh]
-                     for g in _launch_backward(q, k, v, o, lse, do, dh))
+        return (*(g if g.shape[3] == dh else g[..., :dh]
+                  for g in _launch_backward(q, k, v, o, lse, do, dh)), None)
 
 
 def _padded(t: torch.Tensor, width: int) -> torch.Tensor:
@@ -143,14 +174,23 @@ def _padded(t: torch.Tensor, width: int) -> torch.Tensor:
     return out
 
 
-def _laid_out(q, k, v):
+def _in_place(t: torch.Tensor) -> bool:
+    """Whether the kernels read `t` as it lies: head columns contiguous,
+    rows and heads starting 16-byte aligned."""
+    return (t.stride(3) == 1 and all(s % 8 == 0 for s in t.stride()[:3])
+            and t.data_ptr() % 16 == 0)
+
+
+def _laid_out(q, k, v, scale=None):
     """q, k and v as the kernels read them: in place where dh is a built
     width and rows and heads start 16-byte aligned, else zero-padded
-    copies at the next built width."""
+    copies at the next built width; a pair (`scale` given) each in place
+    or copied at its own width."""
+    if scale is not None:
+        return tuple(t if _in_place(t) else _padded(t, t.shape[3])
+                     for t in (q, k, v))
     width = kernel_width(q.shape[3])
-    if (q.shape[3] == width and q.stride(3) == 1
-            and all(s % 8 == 0 for s in q.stride()[:3])
-            and all(t.data_ptr() % 16 == 0 for t in (q, k, v))):
+    if q.shape[3] == width and all(_in_place(t) for t in (q, k, v)):
         return q, k, v
     return tuple(_padded(t, width) for t in (q, k, v))
 
@@ -175,15 +215,23 @@ def divisor(dh: int) -> tuple[float, float]:
     return float(root), float(np.float32(1) / root)
 
 
+def factors(dh: int, scale: float | None) -> tuple[float, float]:
+    """The kernels' (root, rinv): `divisor(dh)`, or with a scale (0, the
+    f32 nearest the scale), which the pair's kernels multiply by."""
+    if scale is None:
+        return divisor(dh)
+    return 0.0, float(np.float32(scale))
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = _build.load("attention")
     vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_float)
-    lib.ko_attention.argtypes = [i32, i32, *[vp] * 8, i64, i64, i64, i32,
+    lib.ko_attention.argtypes = [i32, i32, i32, *[vp] * 8, *[i64] * 9, i32,
                                  i32, i32, f32, f32, vp]
     lib.ko_attention_delta.argtypes = [i32, vp, vp, vp, i32, i32, i32, vp]
-    lib.ko_attention_smem.argtypes = [i32, i32]
+    lib.ko_attention_smem.argtypes = [i32, i32, i32]
     for fn in (lib.ko_attention, lib.ko_attention_delta,
                lib.ko_attention_smem):
         fn.restype = ctypes.c_int
@@ -199,40 +247,46 @@ def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
-def _launch(kind: str, q, k, v, out, dh: int, do=None, lse=None,
-            delta=None, lse_out=None) -> None:
+def _launch(kind: str, q, k, v, out, dh: int, scale=None, do=None,
+            lse=None, delta=None, lse_out=None) -> None:
     bsz, seq, h, width = q.shape
     _ok(_library().ko_attention(
-        KINDS[kind], width, _ptr(q), _ptr(k), _ptr(v), _ptr(do), _ptr(lse),
-        _ptr(delta), _ptr(out), _ptr(lse_out), *q.stride()[:3], bsz, h, seq,
-        *divisor(dh), torch.cuda.current_stream(q.device).cuda_stream), kind)
+        KINDS[kind], width, v.shape[3], _ptr(q), _ptr(k), _ptr(v), _ptr(do),
+        _ptr(lse), _ptr(delta), _ptr(out), _ptr(lse_out),
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], bsz, h, seq,
+        *factors(dh, scale), torch.cuda.current_stream(q.device).cuda_stream),
+        kind)
 
 
-def _launch_forward(q, k, v, dh: int | None = None):
-    """o [b, s, h, width] and lse [b, h, s] (f32) for q, k, v as the kernels
-    read them (`_laid_out`); `dh`, the head width before padding, sets the
-    divisor (default: q's width)."""
+def _launch_forward(q, k, v, dh: int | None = None,
+                    scale: float | None = None):
+    """o [b, s, h, v's width] and lse [b, h, s] (f32) for q, k, v as the
+    kernels read them (`_laid_out`); `dh`, the head width before padding,
+    sets the divisor (default: q's width) where no `scale` is given."""
     bsz, seq, h, width = q.shape
-    o = torch.empty((bsz, seq, h, width), dtype=q.dtype, device=q.device)
+    o = torch.empty((bsz, seq, h, v.shape[3]), dtype=q.dtype, device=q.device)
     lse = torch.empty((bsz, h, seq), dtype=torch.float32, device=q.device)
-    _launch("fwd", q, k, v, o, dh or width, lse_out=lse)
+    _launch("fwd", q, k, v, o, dh or width, scale, lse_out=lse)
     causal_attention.launches += LAUNCHES_FORWARD
     return o, lse
 
 
-def _launch_backward(q, k, v, o, lse, do, dh: int | None = None):
-    """dq, dk, dv (contiguous [b, s, h, width]) for a contiguous
-    [b, s, h, width] dO, from `_launch_forward`'s o and lse."""
+def _launch_backward(q, k, v, o, lse, do, dh: int | None = None,
+                     scale: float | None = None):
+    """dq, dk (contiguous [b, s, h, q's width]) and dv (v's width) for a
+    contiguous dO shaped as o, from `_launch_forward`'s o and lse."""
     bsz, seq, h, width = q.shape
     stream = torch.cuda.current_stream(q.device).cuda_stream
     delta = torch.empty_like(lse)
-    _ok(_library().ko_attention_delta(width, o.data_ptr(), do.data_ptr(),
+    _ok(_library().ko_attention_delta(o.shape[3], o.data_ptr(), do.data_ptr(),
                                       delta.data_ptr(), bsz, h, seq, stream),
         "delta")
-    dq, dk, dv = (torch.empty(o.shape, dtype=q.dtype, device=q.device)
-                  for _ in range(3))
+    dq, dk = (torch.empty(q.shape, dtype=q.dtype, device=q.device)
+              for _ in range(2))
+    dv = torch.empty(o.shape, dtype=q.dtype, device=q.device)
     for kind, out in (("dv", dv), ("dk", dk), ("dq", dq)):
-        _launch(kind, q, k, v, out, dh or width, do=do, lse=lse, delta=delta)
+        _launch(kind, q, k, v, out, dh or width, scale, do=do, lse=lse,
+                delta=delta)
     causal_attention.launches += LAUNCHES_BACKWARD
     return dq, dk, dv
 
@@ -240,13 +294,14 @@ def _launch_backward(q, k, v, o, lse, do, dh: int | None = None):
 def kernel_resources() -> dict:
     """Registers a thread, spilled bytes and shared memory bytes (static
     plus dynamic) of each kernel at each built width, from ptxas's report
-    when the library was built: {"fwd512": {...}, "delta512": {...}, ...}."""
+    when the library was built: {"fwd512": {...}, "fwd192x128": {...},
+    "delta512": {...}, ...}."""
     lib = _library()
     names = {str(v): k for k, v in KINDS.items()}
     out = {}
     for entry in _build.build_log("attention").split(
             "Compiling entry function")[1:]:
-        kernel = re.search(r"attention_kernelILi(\d)ELi(\d+)E", entry)
+        kernel = re.search(r"attention_kernelILi(\d)ELi(\d+)ELi(\d+)ELb", entry)
         delta = re.search(r"delta_kernelILi(\d+)E", entry)
         regs = re.search(r"Used (\d+) registers", entry)
         if not (kernel or delta) or not regs:
@@ -255,9 +310,10 @@ def kernel_resources() -> dict:
         static = re.search(r"(\d+) bytes smem", entry)
         shared = int(static.group(1)) if static else 0
         if kernel:
-            name = names[kernel.group(1)] + kernel.group(2)
-            shared += lib.ko_attention_smem(int(kernel.group(1)),
-                                            int(kernel.group(2)))
+            kind, dqk, dv = (int(g) for g in kernel.groups())
+            name = names[str(kind)] + (str(dqk) if dqk == dv
+                                       else f"{dqk}x{dv}")
+            shared += lib.ko_attention_smem(kind, dqk, dv)
         else:
             name = "delta" + delta.group(1)
         out[name] = dict(n_regs=int(regs.group(1)),

@@ -15,9 +15,12 @@ import contextlib
 
 from torch.autograd import profiler as _profiler
 
-# every span the port records, with its "ko." prefix
+# every span the port records, with its "ko." prefix: the entry's step,
+# each model's blocks and AdamW; the expert layer's parts inside
+# ko.block.ffn and the head at the top level (`workloads/mla_moe.py`)
 SPANS = ("ko.train.step", "ko.block.attention", "ko.block.ffn",
-         "ko.step.optimizer")
+         "ko.step.optimizer", "ko.moe.route", "ko.moe.experts",
+         "ko.moe.combine", "ko.moe.shared", "ko.model.head")
 
 _OFF = contextlib.nullcontext()
 

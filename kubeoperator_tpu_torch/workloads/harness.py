@@ -42,6 +42,7 @@ from kubeoperator_tpu_torch.parallel.mesh import (
 )
 from kubeoperator_tpu_torch.parallel.validation_net import NetConfig
 from kubeoperator_tpu_torch.utils.spans import span
+from kubeoperator_tpu_torch.workloads.mla_moe import MlaMoeConfig
 from kubeoperator_tpu_torch.workloads.partition import (
     make_shard_and_gather_fns,
     replicated_specs,
@@ -61,12 +62,13 @@ ROW_SCHEMA = ("axis", "devices", "mesh", "mode", "steps", "steps_per_s",
               "ok")
 
 
-def run_training(mesh: DeviceMesh, cfg: NetConfig | None = None, steps: int = 4,
-                 mode: str = "auto", rules=None, seed: int = 0,
+def run_training(mesh: DeviceMesh, cfg: NetConfig | MlaMoeConfig | None = None,
+                 steps: int = 4, mode: str = "auto", rules=None, seed: int = 0,
                  state=None, on_step=None, return_state: bool = False,
                  checkpoint_every: int = 0, on_checkpoint=None) -> dict:
     """One training run on one mesh: step, fence, judge. Every rank of the
-    mesh calls it together.
+    mesh calls it together. `cfg` picks the model: the dense stage
+    (`NetConfig`) or the Kimi-K2 block (`MlaMoeConfig`).
 
     Returns the per-run record including ``windows`` — named (compile /
     steps) wall-clock windows (the first step stands in for the reference's

@@ -33,6 +33,7 @@ from kubeoperator_tpu_torch.parallel.mesh import (
     mesh_sizes,
 )
 from kubeoperator_tpu_torch.parallel.validation_net import NetConfig
+from kubeoperator_tpu_torch.workloads.mla_moe import MlaMoeConfig
 from kubeoperator_tpu_torch.workloads.partition import (
     PartitionError,
     make_shard_and_gather_fns,
@@ -54,14 +55,15 @@ from kubeoperator_tpu_torch.workloads.step import (
 )
 
 
-def serve_rules():
+def serve_rules(cfg=None):
     """Partition rules for the forward-only param tree — the training rules
-    verbatim; named separately so a serving layout can diverge."""
-    return default_rules()
+    of `cfg`'s model verbatim; named separately so a serving layout can
+    diverge."""
+    return default_rules(cfg)
 
 
-def compile_forward(mesh: DeviceMesh, cfg: NetConfig | None = None, specs=None,
-                    mode: str = "auto"):
+def compile_forward(mesh: DeviceMesh, cfg: NetConfig | MlaMoeConfig | None = None,
+                    specs=None, mode: str = "auto"):
     """The serve-side seam: returns ``(forward_fn, used)`` where
     ``forward_fn(params, x) -> y`` on this rank's blocks (y: this rank's
     batch rows) and ``used`` is the mode that runs. ``specs`` is the
@@ -103,16 +105,17 @@ def compile_forward(mesh: DeviceMesh, cfg: NetConfig | None = None, specs=None,
     return local_forward, "shard_map"
 
 
-def make_forward(mesh: DeviceMesh, cfg: NetConfig | None = None, rules=None,
-                 mode: str = "auto"):
+def make_forward(mesh: DeviceMesh, cfg: NetConfig | MlaMoeConfig | None = None,
+                 rules=None, mode: str = "auto"):
     """Rules → param specs → forward, in one call: returns
-    ``(forward_fn, specs_or_None, used_mode)``."""
+    ``(forward_fn, specs_or_None, used_mode)``. The forward of an
+    `MlaMoeConfig` takes token ids and returns logits."""
     cfg = cfg or NetConfig()
     if mode == "shard_map":
         specs = None
     else:
         specs = match_partition_rules(
-            rules if rules is not None else serve_rules(),
+            rules if rules is not None else serve_rules(cfg),
             param_shapes(cfg))
     fn, used = compile_forward(mesh, cfg, specs=specs, mode=mode)
     if used == "shard_map":

@@ -1,9 +1,18 @@
 """The sharded-training tenant workload: a (data, fsdp, tp) AdamW step
 behind one compile seam (port of `workloads/step.py`).
 
-Model: the validation net's dense stage (rms-norm → causal multi-head
-attention → Megatron-shape FFN → readout) over the net's own `NetConfig`
-dims, with the reference's rounding points (`_forward`). The reference
+Models, picked by the configuration's type in one place for each of the
+param tree, the initial state, the batch, the forward, the loss, the FLOP
+count and the partition rules:
+
+* `NetConfig`: the validation net's dense stage (rms-norm → causal
+  multi-head attention → Megatron-shape FFN → readout, loss sum(y²)) over
+  the net's own dims, with the reference's rounding points (`_forward`);
+* `MlaMoeConfig`: the DeepSeek-V3 block of Kimi K2, latent attention and
+  routed experts on one expert-parallel card's share, over token ids with
+  a cross-entropy loss (`workloads/mla_moe.py`).
+
+The dense stage's arithmetic is the reference's, below. The reference
 writes it once in global-array form and lets its compiler lay it out; the
 port runs it as explicit SPMD on each rank's blocks, in two modes with the
 reference's names:
@@ -45,6 +54,7 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from kubeoperator_tpu_torch.ops.attention import (
     MAX_DH,
+    PAIRS,
     attention_reference,
     causal_attention,
 )
@@ -54,6 +64,8 @@ from kubeoperator_tpu_torch.parallel.validation_net import NetConfig, rms
 from kubeoperator_tpu_torch.utils.errors import ValidationError
 from kubeoperator_tpu_torch.utils.spans import span
 from kubeoperator_tpu_torch.weights import bf16_from_f64, local_shard, spec_axes
+from kubeoperator_tpu_torch.workloads import mla_moe
+from kubeoperator_tpu_torch.workloads.mla_moe import MlaMoeConfig
 from kubeoperator_tpu_torch.workloads.partition import (
     PartitionError,
     gather_leaf,
@@ -77,9 +89,12 @@ ADAM_B1, ADAM_B2, ADAM_EPS, ADAM_EPS_ROOT = 0.9, 0.999, 1e-8, 0.0
 _INT32_MAX = 2 ** 31 - 1
 
 
-def default_rules():
+def default_rules(cfg=None):
     """The workload's layout as ordered (regex, spec) rules. First match
-    wins; `w_head` is named so `explain_rules` reads as documentation."""
+    wins; `w_head` is named so `explain_rules` reads as documentation. An
+    `MlaMoeConfig` takes its own (`mla_moe.default_rules`)."""
+    if isinstance(cfg, MlaMoeConfig):
+        return mla_moe.default_rules()
     return (
         (r"wqkv$", ("fsdp", None)),        # ZeRO-3: rows sharded on fsdp
         (r"w_in$", (None, "tp")),          # megatron col-parallel
@@ -118,7 +133,7 @@ def _opt_state(count, mu, nu) -> tuple:
             MaskedState(inner_state=EmptyState()), EmptyState())
 
 
-def torch_dtype(cfg: NetConfig) -> torch.dtype:
+def torch_dtype(cfg: NetConfig | MlaMoeConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
@@ -129,9 +144,12 @@ def _cast(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
     return torch.from_numpy(a.astype(np.float32))
 
 
-def param_shapes(cfg: NetConfig | None = None) -> dict:
+def param_shapes(cfg: NetConfig | MlaMoeConfig | None = None) -> dict:
     """Abstract param tree, in the reference's draw order."""
     cfg = cfg or NetConfig()
+    if isinstance(cfg, MlaMoeConfig):
+        return {name: ShapeDtypeStruct(shape, dt)
+                for name, (shape, dt) in mla_moe.param_shapes(cfg).items()}
     d, f = cfg.d_model, cfg.d_ff
     dt = torch_dtype(cfg)
     shapes = {
@@ -147,10 +165,14 @@ def param_shapes(cfg: NetConfig | None = None) -> dict:
             for name, shape in shapes.items()}
 
 
-def build_host_params(cfg: NetConfig | None = None, seed: int = 0) -> dict:
+def build_host_params(cfg: NetConfig | MlaMoeConfig | None = None,
+                      seed: int = 0) -> dict:
     """Param tree as CPU tensors from numpy's `default_rng(seed)`, drawn and
-    rounded as the reference draws them."""
+    rounded as the reference draws them (an `MlaMoeConfig`: its own
+    per-leaf draw, `mla_moe.init_params`, on the host)."""
     cfg = cfg or NetConfig()
+    if isinstance(cfg, MlaMoeConfig):
+        return mla_moe.init_params(cfg, seed, "cpu")
     rng = np.random.default_rng(seed)
     out = {}
     for name, sds in param_shapes(cfg).items():
@@ -221,6 +243,19 @@ def make_optimizer(lr: float | None = None) -> AdamW:
     return AdamW(lr=ADAMW_LR if lr is None else lr)
 
 
+def adamw_lr(cfg: NetConfig | MlaMoeConfig) -> float:
+    """The configuration's AdamW learning rate: an `MlaMoeConfig`'s own
+    `lr`; the dense stage's `ADAMW_LR` (`NetConfig.lr` is the validation
+    net's SGD step)."""
+    return cfg.lr if isinstance(cfg, MlaMoeConfig) else ADAMW_LR
+
+
+def frozen_leaves(cfg: NetConfig | MlaMoeConfig) -> tuple[str, ...]:
+    """The leaves of the param tree no gradient moves: the step counter
+    (and an `MlaMoeConfig`'s routing biases)."""
+    return mla_moe.frozen(cfg) if isinstance(cfg, MlaMoeConfig) else ("step",)
+
+
 def train_state_shapes(cfg: NetConfig | None = None) -> dict:
     """Abstract TrainState tree ``{"params", "opt"}``: the Adam moments
     carry the params' names (matched by the same rules), and `opt/0/count`
@@ -237,24 +272,34 @@ def build_host_state(cfg: NetConfig | None = None, seed: int = 0) -> dict:
     return {"params": params, "opt": make_optimizer().init(params)}
 
 
-def init_train_state(mesh: DeviceMesh, cfg: NetConfig | None = None,
+def init_train_state(mesh: DeviceMesh, cfg: NetConfig | MlaMoeConfig | None = None,
                      seed: int = 0, specs=None) -> dict:
     """Host TrainState placed onto `mesh`: this rank's blocks per the spec
-    tree (pjit), the whole of it otherwise (shard_map)."""
-    host = build_host_state(cfg, seed)
+    tree (pjit), the whole of it otherwise (shard_map). An `MlaMoeConfig`'s
+    parameters are drawn on the mesh's device itself."""
+    if isinstance(cfg, MlaMoeConfig):
+        params = mla_moe.init_params(cfg, seed, mesh_device(mesh))
+        host = {"params": params, "opt": make_optimizer().init(params)}
+    else:
+        host = build_host_state(cfg, seed)
     if specs is None:
         specs = replicated_specs(host)
     shard_fn, _ = make_shard_and_gather_fns(mesh, specs)
     return shard_fn(host)
 
 
-def build_batch(mesh: DeviceMesh, cfg: NetConfig | None = None,
+def build_batch(mesh: DeviceMesh, cfg: NetConfig | MlaMoeConfig | None = None,
                 seed: int = 1) -> torch.Tensor:
     """This rank's block of the global [b_local·data·fsdp, seq, d_model]
-    batch, cut over the (data, fsdp) axes. Weak scaling on the batch axes:
-    the per-rank batch stays `cfg.b_local` whatever the mesh shape."""
+    batch (an `MlaMoeConfig`: [b_local·data·fsdp, seq + 1] token ids),
+    cut over the (data, fsdp) axes. Weak scaling on the batch axes: the
+    per-rank batch stays `cfg.b_local` whatever the mesh shape."""
     cfg = cfg or NetConfig()
     sizes = mesh_sizes(mesh)
+    if isinstance(cfg, MlaMoeConfig):
+        host = mla_moe.token_batch(
+            cfg, cfg.b_local * sizes["data"] * sizes["fsdp"], seed)
+        return local_shard(host, BATCH_SPEC[:2], mesh).to(mesh_device(mesh))
     rng = np.random.default_rng(seed)
     host = _cast(rng.standard_normal(
         (cfg.b_local * sizes["data"] * sizes["fsdp"], cfg.s_local, cfg.d_model)),
@@ -262,13 +307,17 @@ def build_batch(mesh: DeviceMesh, cfg: NetConfig | None = None,
     return local_shard(host, BATCH_SPEC, mesh).to(mesh_device(mesh))
 
 
-def _forward(p: dict, x: torch.Tensor, cfg: NetConfig, tp=None) -> torch.Tensor:
+def _forward(p: dict, x: torch.Tensor, cfg: NetConfig | MlaMoeConfig,
+             tp=None) -> torch.Tensor:
     """The dense stage on whole weights (w_in / w_out: this rank's tp blocks
     when `tp`, the group they are cut over, is given), with the reference's
     rounding points: rms squares in x's type; attention as
     `ops/attention.py::attention_reference` has them (the logits product
     in x's type, widened to f32 and only then divided by sqrt(dh), the
-    causal mask -1e30, softmax in f32, cast back); tanh gelu."""
+    causal mask -1e30, softmax in f32, cast back); tanh gelu. An
+    `MlaMoeConfig`: the logits of token ids x (`mla_moe.forward`)."""
+    if isinstance(cfg, MlaMoeConfig):
+        return mla_moe.forward(p, x, cfg)
     d, h = cfg.d_model, cfg.heads
     dh = d // h
     bsz, seq = x.shape[0], x.shape[1]
@@ -295,14 +344,37 @@ def _forward(p: dict, x: torch.Tensor, cfg: NetConfig, tp=None) -> torch.Tensor:
     return hx @ p["w_head"]
 
 
+def _loss_size(cfg: NetConfig | MlaMoeConfig, sizes: dict) -> float:
+    """What the step's loss is a mean over: every output entry of the dense
+    stage's global batch, or every predicted token."""
+    rows = cfg.b_local * sizes["data"] * sizes["fsdp"]
+    if isinstance(cfg, MlaMoeConfig):
+        return float(rows * cfg.s_local)
+    return float(rows * cfg.s_local * cfg.d_model)
+
+
+def _loss(p: dict, x: torch.Tensor, cfg: NetConfig | MlaMoeConfig,
+          denom: float, tp=None) -> torch.Tensor:
+    """This rank's share of the step's loss: sum(y²) / denom of the dense
+    stage's output, or the sum of the cross-entropy of each next id over
+    denom (`mla_moe.loss_sum`)."""
+    if isinstance(cfg, MlaMoeConfig):
+        return mla_moe.loss_sum(p, x, cfg) / denom
+    y = _forward(p, x, cfg, tp).float()
+    return torch.sum(y * y) / denom
+
+
 def analytic_step_flops(mesh: DeviceMesh | MeshSpec,
-                        cfg: NetConfig | None = None) -> float:
+                        cfg: NetConfig | MlaMoeConfig | None = None) -> float:
     """Model FLOPs for one global step from the architecture alone
     (matmuls at 2·m·n·k, full-matrix attention per the standard MFU
-    convention, backward as 2× forward)."""
+    convention, backward as 2× forward; an `MlaMoeConfig`:
+    `mla_moe.step_flops`)."""
     cfg = cfg or NetConfig()
     sizes = mesh_sizes(mesh)
     b = cfg.b_local * sizes["data"] * sizes["fsdp"]
+    if isinstance(cfg, MlaMoeConfig):
+        return mla_moe.step_flops(cfg, b * cfg.s_local)
     s, d, f = cfg.s_local, cfg.d_model, cfg.d_ff
     fwd = (
         6 * b * s * d * d          # qkv projection [d -> 3d]
@@ -330,13 +402,23 @@ def check_workload_mesh(mesh: DeviceMesh | MeshSpec, what: str) -> dict[str, int
     return sizes
 
 
-def check_attention_width(mesh: DeviceMesh, cfg: NetConfig) -> None:
+def check_attention_width(mesh: DeviceMesh,
+                          cfg: NetConfig | MlaMoeConfig) -> None:
     """ValidationError for a bf16 config on a card whose head width the
-    fused attention is not built for (`ops/attention.py::MAX_DH`), when the
-    step or forward is built rather than at its first call."""
+    fused attention is not built for (`ops/attention.py::MAX_DH`, or its
+    `PAIRS` of q·k and v widths for an `MlaMoeConfig`), when the step or
+    forward is built rather than at its first call."""
+    if cfg.dtype != "bfloat16" or mesh.device_type != "cuda":
+        return
+    if isinstance(cfg, MlaMoeConfig):
+        pair = (cfg.qk_head_dim, cfg.v_head_dim)
+        if pair not in PAIRS:
+            raise ValidationError(
+                f"a bfloat16 run on a card takes latent attention's head "
+                f"widths {PAIRS}, not {pair}")
+        return
     dh = cfg.d_model // cfg.heads
-    if (cfg.dtype == "bfloat16" and mesh.device_type == "cuda"
-            and dh > MAX_DH):
+    if dh > MAX_DH:
         raise ValidationError(
             f"a bfloat16 run on a card takes head widths up to {MAX_DH} "
             f"(d_model / heads), not {dh}")
@@ -353,7 +435,7 @@ def _cut(spec, dim: int) -> tuple[str, ...]:
 def megatron_pair(param_specs: dict) -> bool:
     """Whether the params' spec tree runs the FFN Megatron-style: w_in's
     columns and w_out's rows cut on tp alone."""
-    return all(_cut(param_specs[name], dim) == ("tp",)
+    return all(name in param_specs and _cut(param_specs[name], dim) == ("tp",)
                for name, dim in _PAIR.items())
 
 
@@ -382,17 +464,18 @@ def relayout(t: torch.Tensor, src, dst, mesh: DeviceMesh) -> torch.Tensor:
     return local_shard(gather_leaf(t, src, mesh), dst, mesh)
 
 
-def compile_step(mesh: DeviceMesh, cfg: NetConfig | None = None, specs=None,
-                 mode: str = "auto", lr: float | None = None):
+def compile_step(mesh: DeviceMesh, cfg: NetConfig | MlaMoeConfig | None = None,
+                 specs=None, mode: str = "auto", lr: float | None = None):
     """THE compile seam: returns ``(step_fn, used)`` where
     ``step_fn(state, x) -> (loss, new_state)`` over the TrainState tree
     ``{"params", "opt"}`` of this rank's blocks and ``used`` is the mode
     that runs. ``specs`` is the TrainState spec tree from the partition
     rules. ``mode`` is ``auto`` (pjit when specs exist, else shard_map), or
-    a forced ``pjit`` / ``shard_map``. Every rank of the mesh calls
-    `step_fn` together."""
+    a forced ``pjit`` / ``shard_map``. ``lr`` is AdamW's learning rate
+    (default: the configuration's, `adamw_lr`). Every rank of the mesh
+    calls `step_fn` together."""
     cfg = cfg or NetConfig()
-    optimizer = make_optimizer(lr)
+    optimizer = make_optimizer(adamw_lr(cfg) if lr is None else lr)
     sizes = check_workload_mesh(mesh, "workload")
     check_attention_width(mesh, cfg)
     if specs is not None and (not isinstance(specs, dict)
@@ -404,8 +487,7 @@ def compile_step(mesh: DeviceMesh, cfg: NetConfig | None = None, specs=None,
             "params-only spec tree leaves the optimizer state unlaid-out")
     if mode == "auto":
         mode = "pjit" if specs is not None else "shard_map"
-    denom = float(cfg.b_local * sizes["data"] * sizes["fsdp"]
-                  * cfg.s_local * cfg.d_model)
+    denom = _loss_size(cfg, sizes)
     if mode == "pjit":
         if specs is None:
             raise PartitionError(
@@ -421,7 +503,8 @@ def compile_step(mesh: DeviceMesh, cfg: NetConfig | None = None, specs=None,
         pspecs, moment_specs, megatron = None, None, False
     groups = {a: mesh.get_group(a) for a in WORKLOAD_AXES}
     data_groups = [groups[a] for a in DATA_AXES if sizes[a] > 1]
-    trainable = [k for k in param_shapes(cfg) if k != "step"]
+    fixed = frozen_leaves(cfg)
+    trainable = [k for k in param_shapes(cfg) if k not in fixed]
 
     def sum_axes(name: str) -> list:
         """Data axes whose ranks' gradients of `name` are summed after
@@ -434,11 +517,10 @@ def compile_step(mesh: DeviceMesh, cfg: NetConfig | None = None, specs=None,
 
     def loss_and_grads(params: dict, x: torch.Tensor):
         p = {k: params[k].detach().requires_grad_() for k in trainable}
+        p.update({k: params[k] for k in fixed if k != "step"})
         whole = (gather_on_use(p, pspecs, groups, megatron)
                  if pspecs is not None else p)
-        y = _forward(whole, x, cfg,
-                     groups["tp"] if megatron else None).float()
-        loss = torch.sum(y * y) / denom
+        loss = _loss(whole, x, cfg, denom, groups["tp"] if megatron else None)
         if pspecs is not None:
             for g in data_groups:
                 loss = psum(loss, g)
@@ -452,7 +534,8 @@ def compile_step(mesh: DeviceMesh, cfg: NetConfig | None = None, specs=None,
             for group in sum_axes(k):
                 dist.all_reduce(g, group=group)
             out[k] = g
-        out["step"] = torch.zeros_like(params["step"])
+        for k in fixed:
+            out[k] = torch.zeros_like(params[k])
         return loss, out
 
     def lay_moments(opt: tuple, as_params: bool) -> tuple:
@@ -479,6 +562,9 @@ def compile_step(mesh: DeviceMesh, cfg: NetConfig | None = None, specs=None,
             if pspecs is not None:
                 new_opt = lay_moments(new_opt, as_params=False)
             new_p = apply_updates(params, updates)
+            for k in fixed:
+                if k != "step":
+                    new_p[k] = params[k]
             # the counter rides outside the gradient flow; written last, so a
             # read of it waits for the whole step
             new_p["step"] = params["step"] + 1.0
@@ -487,8 +573,8 @@ def compile_step(mesh: DeviceMesh, cfg: NetConfig | None = None, specs=None,
     return step_fn, mode
 
 
-def make_train_step(mesh: DeviceMesh, cfg: NetConfig | None = None, rules=None,
-                    mode: str = "auto", lr: float | None = None):
+def make_train_step(mesh: DeviceMesh, cfg: NetConfig | MlaMoeConfig | None = None,
+                    rules=None, mode: str = "auto", lr: float | None = None):
     """Rules → TrainState specs → step, in one call: returns
     ``(step_fn, specs_or_None, used_mode)``; `specs` is None exactly when
     the shard_map fallback runs."""
@@ -497,7 +583,7 @@ def make_train_step(mesh: DeviceMesh, cfg: NetConfig | None = None, rules=None,
         specs = None
     else:
         specs = match_partition_rules(
-            rules if rules is not None else default_rules(),
+            rules if rules is not None else default_rules(cfg),
             train_state_shapes(cfg))
     step, used = compile_step(mesh, cfg, specs=specs, mode=mode, lr=lr)
     if used == "shard_map":

@@ -87,8 +87,9 @@ def test_plain_version_is_the_former_chain_bit_for_bit(dtype, shape):
     assert torch.equal(got_grad, want_grad)
 
 
-def tiled_attention(q, k, v, do, held, streamed):
-    """The kernels' walks in plain f32 PyTorch, for [b, s, h, dh] inputs:
+def tiled_attention(q, k, v, do, held, streamed, scale=None):
+    """The kernels' walks in plain f32 PyTorch, for [b, s, h, dh] inputs
+    (v and dO may be narrower; `scale` in place of 1/sqrt(dh)):
     forward per `held`-row Q tile over `streamed`-row K/V tiles, skipping
     those wholly above the diagonal and masking only the tiles the diagonal
     crosses, with an online max and sum; the log-sum-exp; D = rowsum(dO∘O);
@@ -96,9 +97,10 @@ def tiled_attention(q, k, v, do, held, streamed):
     per Q tile. Returns (o [b, s, h·dh], dq, dk, dv, tiles skipped in
     forward)."""
     bsz, seq, h, dh = q.shape
-    root = torch.tensor(math.sqrt(dh))
+    dv_w = v.shape[3]
+    root = torch.tensor(math.sqrt(dh)) if scale is None else 1 / torch.tensor(scale)
     qh, kh, vh, doh = (t.transpose(1, 2) for t in (q, k, v, do))
-    o = torch.zeros_like(qh)
+    o = torch.zeros_like(vh)
     lse = torch.zeros(qh.shape[:3])
     skipped = 0
 
@@ -114,7 +116,7 @@ def tiled_attention(q, k, v, do, held, streamed):
         rows = torch.arange(m0, min(m0 + held, seq))
         m_i = torch.full(qh.shape[:2] + (len(rows),), -math.inf)
         l_i = torch.zeros_like(m_i)
-        acc = torch.zeros(qh.shape[:2] + (len(rows), dh))
+        acc = torch.zeros(qh.shape[:2] + (len(rows), dv_w))
         for n0 in range(0, seq, streamed):
             cols = torch.arange(n0, min(n0 + streamed, seq))
             if n0 >= min(m0 + held, seq):
@@ -131,7 +133,7 @@ def tiled_attention(q, k, v, do, held, streamed):
         o[:, :, rows] = acc / l_i[..., None]
         lse[:, :, rows] = m_i + torch.log(l_i)
     delta = (doh * o).sum(-1)
-    dq, dk, dv = (torch.zeros_like(qh) for _ in range(3))
+    dq, dk, dv = torch.zeros_like(qh), torch.zeros_like(kh), torch.zeros_like(vh)
     for n0 in range(0, seq, held):
         cols = torch.arange(n0, min(n0 + held, seq))
         for m0 in range(n0, seq, streamed):
@@ -151,7 +153,7 @@ def tiled_attention(q, k, v, do, held, streamed):
             dp = doh[:, :, rows] @ vh[:, :, cols].transpose(-1, -2)
             ds = p * (dp - delta[:, :, rows, None]) / root
             dq[:, :, rows] += ds @ kh[:, :, cols]
-    return (o.transpose(1, 2).reshape(bsz, seq, h * dh),
+    return (o.transpose(1, 2).reshape(bsz, seq, h * dv_w),
             *(t.transpose(1, 2) for t in (dq, dk, dv)), skipped)
 
 
@@ -178,6 +180,41 @@ def test_tile_walk_matches_autograd_of_the_plain_version(seq, dh, held,
     # rescaling, D for rowsum(dP∘P)): a few f32 steps of entries up to ~10
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w.detach(), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("seq,held,streamed", [(37, 16, 8), (100, 64, 32)])
+def test_tile_walk_at_latent_widths_matches_autograd_of_the_plain_version(
+        seq, held, streamed):
+    """q and k 192 wide, v 128 (a view of a wider kv product), scores
+    times the softmax scale: the walks with the widths apart."""
+    gen = torch.Generator().manual_seed(seq)
+    q, k = (torch.randn((2, seq, 2, 192), generator=gen).requires_grad_()
+            for _ in range(2))
+    kv = torch.randn((2, seq, 2, 256), generator=gen).requires_grad_()
+    v = kv[..., 128:]
+    scale = 0.130861
+    out = attention_reference(q, k, v, scale)
+    assert out.shape == (2, seq, 2 * 128)
+    do = torch.randn(out.shape, generator=torch.Generator().manual_seed(7))
+    want = (out, *torch.autograd.grad(out, (q, k, v), do))
+    *got, _ = tiled_attention(q.detach(), k.detach(), v.detach(),
+                              do.reshape(2, seq, 2, 128), held, streamed, scale)
+    # as the square walks above: the same f32 arithmetic in another order
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w.detach(), rtol=1e-5, atol=1e-5)
+
+
+def test_plain_version_with_a_scale_multiplies_the_f32_logits():
+    gen = torch.Generator().manual_seed(2)
+    q, k = (torch.randn((1, 9, 2, 192), generator=gen).bfloat16() for _ in range(2))
+    v = torch.randn((1, 9, 2, 128), generator=gen).bfloat16()
+    logits = torch.einsum("bqhe,bkhe->bhqk", q, k).float() * torch.tensor(0.5)
+    logits = torch.where(torch.ones(9, 9, dtype=torch.bool).tril(), logits,
+                         attention.MASK)
+    attn = torch.softmax(logits, dim=-1).bfloat16()
+    want = torch.einsum("bhqk,bkhe->bqhe", attn, v).reshape(1, 9, 256)
+    assert torch.equal(attention_reference(q, k, v, 0.5), want)
+    assert torch.equal(causal_attention(q, k, v, 0.5), want)
 
 
 def _kernel_quotient(x: np.ndarray, root: float, rinv: float) -> np.ndarray:
@@ -275,20 +312,54 @@ def test_wrapper_refuses_what_the_kernels_do_not_take(dtype, dh, error):
         causal_attention(q, q, q)
 
 
+@pytest.mark.parametrize("dqk,dv,scale,error", [
+    (192, 128, None, "share shape"),        # two widths need a scale
+    (128, 128, 0.1, "with a scale"),        # a scale needs a built pair
+    (192, 64, 0.1, "with a scale"),
+    (256, 128, 0.1, "with a scale"),
+    (192, 128, 0.1, "unsupported device"),  # the pair itself is taken
+])
+def test_wrapper_refuses_pairs_it_is_not_built_for(dqk, dv, scale, error):
+    q = torch.empty((1, 8, 2, dqk), dtype=torch.bfloat16, device="meta")
+    v = torch.empty((1, 8, 2, dv), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match=error):
+        causal_attention(q, q, v, scale)
+
+
 def test_wrapper_refuses_q_k_v_of_other_layouts():
     q = torch.empty((1, 8, 2, 64), dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError, match="share shape and strides"):
         causal_attention(q, q.transpose(1, 2).contiguous().transpose(1, 2), q)
 
 
+def test_wrapper_takes_a_pairs_own_strides_and_refuses_other_shapes():
+    # with a scale each tensor keeps its own strides (v a view of a wider
+    # product); shapes agree but for v's width
+    q = torch.empty((1, 8, 2, 192), dtype=torch.bfloat16, device="meta")
+    kv = torch.empty((1, 8, 2, 256), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        causal_attention(q, q.transpose(1, 2).contiguous().transpose(1, 2),
+                         kv[..., 128:], 0.1)
+    for k, v in ((q[:, :4], kv[..., 128:]), (q, kv[:, :7, :, 128:])):
+        with pytest.raises(ValueError, match="share shape"):
+            causal_attention(q, k, v, 0.1)
+
+
 def test_built_widths_are_the_librarys():
-    # the widths and kinds the wrapper passes are those the C entry takes
+    # the widths, pairs and kinds the wrapper passes are those the C entry
+    # takes: equal widths divide (SCALE false), the pairs take a scale
     src = (Path(attention.__file__).parents[1] / "csrc"
            / "attention.cu").read_text()
     entry = src[src.index("int ko_attention("):]
-    entry = entry[:entry.index("return cudaErrorInvalidValue")]
-    assert tuple(int(w) for w in re.findall(r"case (\d+):", entry)) \
-        == attention.WIDTHS
+    entry = entry[:entry.index("}\n")]
+    square = re.findall(r"case (\d+): return launch_kind<(\d+), (\d+), false>",
+                        entry)
+    assert all(a == b == c for a, b, c in square)
+    assert tuple(int(w) for w, _, _ in square) == attention.WIDTHS
+    pairs = re.findall(r"if \(dqk == (\d+) && dv == (\d+)\) return "
+                       r"launch_kind<(\d+), (\d+), true>", entry)
+    assert all((a, b) == (c, d) for a, b, c, d in pairs)
+    assert tuple((int(a), int(b)) for a, b, _, _ in pairs) == attention.PAIRS
     kinds = re.search(r"enum Kind \{([^}]*)\}", src).group(1)
     assert {name: int(num) for name, num in re.findall(
         r"k(\w+) = (\d)", kinds)} == {k.capitalize(): v for k, v in
@@ -319,6 +390,19 @@ def test_laid_out_reads_the_step_views_in_place_and_pads_other_widths(dh):
         2, 9, 2, width)
     assert torch.equal(attention._unpadded(out, dh),
                        out[..., :dh].reshape(2, 9, 2 * dh))
+
+
+def test_laid_out_reads_a_pairs_views_in_place():
+    gen = torch.Generator().manual_seed(4)
+    q, k = (torch.randn((2, 9, 3, 192), generator=gen).bfloat16() for _ in range(2))
+    kv = torch.randn((2, 9, 3, 256), generator=gen).bfloat16()
+    v = kv[..., 128:]
+    laid = attention._laid_out(q, k, v, 0.13)
+    for t, got in zip((q, k, v), laid):
+        assert got.data_ptr() == t.data_ptr() and got.stride() == t.stride()
+    odd = torch.randn((2, 9, 3, 130), generator=gen).bfloat16()[..., 2:]
+    got = attention._laid_out(q, k, odd, 0.13)[2]    # rows off 16 bytes
+    assert got.is_contiguous() and torch.equal(got, odd)
 
 
 def test_misaligned_rows_are_copied_at_the_same_width():
@@ -448,3 +532,75 @@ def test_forward_launches_the_kernels_once_forward_and_back(dev):
     step._forward({k: t.detach().float() for k, t in params.items()},
                   x.float(), f32)
     assert causal_attention.launches == before + 2 * fwd + bwd
+
+
+def _latent_on_card(bsz, seq, h, dev, seed=0):
+    """q, k [b, s, h, 192], kv [b, s, h, 256] (v its last 128 columns, a
+    strided view) and dO [b, s, h·128], bf16 on the card."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k = (torch.randn((bsz, seq, h, 192), device=dev, generator=gen)
+            .bfloat16().requires_grad_() for _ in range(2))
+    kv = torch.randn((bsz, seq, h, 256), device=dev, generator=gen).bfloat16()
+    do = torch.randn((bsz, seq, h * 128), device=dev, generator=gen).bfloat16()
+    return q, k, kv.requires_grad_(), do
+
+
+LATENT_SCALE = 192 ** -0.5 * (0.1 * math.log(32) + 1) ** 2
+# The square widths' limits, with the norm's doubled: the scale puts the
+# scores' spread at LATENT_SCALE · sqrt(192) = 1.81 against 1 for 1/sqrt(dh),
+# and the bf16 roundings of S and of dO·vᵀ (the chain's) enter the exponent
+# and dS in proportion; 2^-7 is still two orders under a wrong tile, row,
+# mask or scale
+LATENT_NORM_TOL = 2 ** -7
+
+
+def _latent_run(q, k, kv, do, heads=None):
+    """o and the gradients of q, k and v through the kernels (all heads at
+    once), or through the plain version `heads` heads at a time."""
+    if heads is None:
+        out = causal_attention(q, k, kv[..., 128:], LATENT_SCALE)
+        dq, dk, dkv = torch.autograd.grad(out, (q, k, kv), do)
+        return out.detach(), dq, dk, dkv[..., 128:]
+    bsz, seq, h, _ = q.shape
+    parts = []
+    for h0 in range(0, h, heads):
+        sl = slice(h0, h0 + heads)
+        x = [t[:, :, sl].detach().requires_grad_()
+             for t in (q, k, kv[..., 128:])]
+        out = attention_reference(*x, LATENT_SCALE)
+        d = do.view(bsz, seq, h, 128)[:, :, sl].reshape(out.shape)
+        parts.append((out.detach().view(bsz, seq, -1, 128),
+                      *torch.autograd.grad(out, x, d)))
+    o, dq, dk, dv = (torch.cat(t, dim=2) for t in zip(*parts))
+    return o.reshape(bsz, seq, h * 128), dq, dk, dv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 100, 2), (2, 333, 4), (1, 8192, 64)])
+def test_latent_kernels_match_the_plain_version_on_the_card(dev, shape):
+    """K3's (192, 128) kernels, v a view of the kv product, scores times
+    the softmax scale: the same two limits as the square widths."""
+    q, k, kv, do = _latent_on_card(*shape, dev)
+    launches = causal_attention.launches
+    got = _latent_run(q, k, kv, do)
+    assert causal_attention.launches == launches + attention.LAUNCHES_FORWARD \
+        + attention.LAUNCHES_BACKWARD
+    want = _latent_run(q, k, kv, do, heads=16)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("o", "dq", "dk", "dv"), got, want):
+        g, w = g.float(), w.float()
+        assert bool(torch.isfinite(g).all()), name
+        err = (g - w).norm() / w.norm()
+        worst = (g - w).abs().max() / w.abs().max()
+        assert err <= LATENT_NORM_TOL and worst <= MAX_TOL, (
+            name, float(err), float(worst))
+
+
+@pytest.mark.cuda
+def test_latent_backward_is_bit_identical_run_to_run(dev):
+    q, k, kv, do = _latent_on_card(1, 8192, 64, dev, seed=3)
+    first = _latent_run(q, k, kv, do)
+    second = _latent_run(q, k, kv, do)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
