@@ -117,9 +117,11 @@ Phases; any failure ends the run with a non-zero exit and no result line:
  20. K3 at latent attention's widths (q and k 192, v 128 a view of the kv
      product, the scores times the softmax scale): against its plain
      version at `LATENT_SHAPES` (the reference a block of heads at a time),
-     two backward runs bit-identical, then its forward and backward times
-     at the Kimi-K2 cell's shape beside their bounds (forward q·kᵀ at 192
-     and P·v at 128, backward two of each width)
+     two backward runs bit-identical and each a launch of the fused dK·dV
+     walk, then its forward and backward times at the Kimi-K2 cell's shape
+     beside their bounds (forward q·kᵀ at 192 and P·v at 128, backward two
+     of each width), each backward launch's time by kind, and the pair's
+     and `delta_kernel<128>`'s registers, spills and shared memory
 Phase 10 also runs, over its 2 processes, the bench twin's >= 2-rank
 branch (rank 0's line), Ulysses across the two cards, and then
 `dryrun_multichip(2, device="cuda")`; with 4 or more cards,
@@ -1078,7 +1080,7 @@ def workload_bench(gen, smi: str) -> dict:
     seconds = time.perf_counter() - t0
     k3_launches = attention.causal_attention.launches
     if k3_launches != 12 * (attention.LAUNCHES_FORWARD
-                            + attention.LAUNCHES_BACKWARD):
+                            + attention.LAUNCHES_BACKWARD[(512, 512)]):
         fail(f"12 bf16 workload steps launched K3 {k3_launches} times")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     state = run.pop("state")
@@ -1249,7 +1251,12 @@ def latent_attention_phase(smi: str) -> dict:
             dq, dk, dkv = torch.autograd.grad(out, (q, k, kv), do.reshape(out.shape))
             return [out.detach().view(b, s, h, 128), dq, dk, dkv[..., 128:]]
 
+        fused = k3.causal_attention.fused_backward_launches
         got, again = run(), run()
+        fused = k3.causal_attention.fused_backward_launches - fused
+        if fused != 2:
+            fail(f"K3 at {(b, s, h, 192, 128)}: 2 backward calls launched "
+                 f"the fused dK·dV walk {fused} times")
         errs = {name: dict(num=0.0, den=0.0, max_num=0.0, max_den=0.0)
                 for name in ("o", "dq", "dk", "dv")}
         for h0 in range(0, h, 16):          # the plain chain, 16 heads a time
@@ -1279,7 +1286,7 @@ def latent_attention_phase(smi: str) -> dict:
                 fail(f"K3 at {(b, s, h, 192, 128)}: {name} {errs[name]}")
         del got, again
         torch.cuda.empty_cache()
-        rec = dict(errors=errs)
+        rec = dict(errors=errs, backward_calls=2, fused_backward_launches=fused)
         if (b, s) != LATENT_SHAPES[0][:2]:
             qd, kd, vd = q.detach(), k.detach(), kv.detach()[..., 128:]
             o, lse = k3._launch_forward(qd, kd, vd, 192, LATENT_SCALE)
@@ -1289,6 +1296,7 @@ def latent_attention_phase(smi: str) -> dict:
                     qd, kd, vd, 192, LATENT_SCALE), 5, 3),
                 bwd_ms=event_ms(lambda: k3._launch_backward(
                     qd, kd, vd, o, lse, do, 192, LATENT_SCALE), 5, 1),
+                bwd_kinds_ms=backward_kinds_ms(k3, qd, kd, vd, o, lse, do),
                 fwd_bound_ms=unit * (192 + 128) / 989e12 * 1e3,
                 bwd_bound_ms=2 * unit * (192 + 128) / 989e12 * 1e3,
                 resources={n: r for n, r in k3.kernel_resources().items()
@@ -1300,6 +1308,32 @@ def latent_attention_phase(smi: str) -> dict:
         del q, k, kv, do
         torch.cuda.empty_cache()
     return dict(shapes=shapes, nvidia_smi=smi)
+
+
+def backward_kinds_ms(k3, q, k, v, o, lse, do) -> dict:
+    """Each launch of K3's backward at (192, 128) alone, by kind (ms), in
+    the order `BACKWARD` lists them."""
+    import torch
+
+    b, s, h, _ = q.shape
+    lib = k3._library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    delta = torch.empty_like(lse)
+
+    def d():
+        k3._ok(lib.ko_attention_delta(128, o.data_ptr(), do.data_ptr(),
+                                      delta.data_ptr(), b, h, s, stream),
+               "delta")
+
+    ms = {"delta": event_ms(d, 5, 3)}
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(o)
+    outs = {"dkv": (dk, dv), "dq": (dq, None)}
+    for kind in k3.BACKWARD[(192, 128)][1:]:
+        out, out2 = outs[kind]
+        ms[kind] = event_ms(lambda: k3._launch(
+            kind, q, k, v, out, 192, LATENT_SCALE, do=do, lse=lse,
+            delta=delta, out2=out2), 5, 1)
+    return ms
 
 
 def fwd_and_bwd(rec: dict, name: str) -> float | None:

@@ -24,15 +24,18 @@
 // given softmax scale, S = bf16(q·kᵀ)·scale and dS = bf16(P∘(dO·vᵀ - D)·scale),
 // each one f32 multiply as the chain's.
 //
-// Launches. Forward: one (kind kFwd), writing o and lse. Backward: four, with
-// no atomics, so the gradients are the same bits from run to run: D
-// (delta_kernel), then dV and dK (kinds kDv and kDk: one block per 64-row K
-// tile, walking the Q tiles from the diagonal down) and dQ (kind kDq: one
-// block per 64-row Q tile, walking the K tiles up to the diagonal).
+// Launches. Forward: one (kind kFwd), writing o and lse. Backward, with no
+// atomics, so the gradients are the same bits from run to run: at equal
+// widths four: D (delta_kernel), then dV and dK (kinds kDv and kDk: one
+// block per 64-row K tile, walking the Q tiles from the diagonal down) and
+// dQ (kind kDq: one block per 64-row Q tile, walking the K tiles up to the
+// diagonal); at the pair three: D, then dK and dV in one walk (kind kDkv)
+// and dQ (kind kDq), both on the pipeline below.
 //
 // What bounds it on the H100. Forward is two b·h·s²·dh products over the
-// causal half, backward eight (S recomputed in each of dV, dK and dQ; dP in
-// dK and dQ; then bf16(P)ᵀ·dO, dSᵀ·q and dS·k). At dh = 512 a score costs
+// causal half, backward eight at equal widths (S recomputed in each of dV,
+// dK and dQ; dP in dK and dQ; then bf16(P)ᵀ·dO, dSᵀ·q and dS·k), seven at
+// the pair (S and dP formed once for dK and dV). At dh = 512 a score costs
 // 1024 multiply-adds against a few dozen instructions of softmax, so the
 // work is the tensor cores'. What holds them back is feeding them: a block
 // re-reads every K/V (or Q/dO) tile of its walk from L2, 128 KB a tile for
@@ -70,6 +73,43 @@
 // K/V tiles wholly above the diagonal are never loaded; only the tiles the
 // diagonal crosses are masked (exact: exp(-1e30 - max) is 0 in f32).
 //
+// The pair's backward (kinds kDkv and kDq at (192, 128), `attention_kernel_
+// pipelined`): warp-specialised walks fed by TMA. A block is three
+// warpgroups. The producer (setmaxnreg 24) loads the held tiles once and
+// keeps the streamed tiles coming through a ring of 3 stages: one warp,
+// one lane starting cp.async.bulk.tensor copies of 64-column boxes (4-d
+// maps over [b, s, h, width] with the tensors' own strides, 128-byte
+// swizzled: the layout above; rows past s read as zeros), its 32 lanes
+// writing the streamed Q rows' lse and D beside them (kDkv), each stage
+// with a full and an empty mbarrier. Two consumer warpgroups (setmaxnreg
+// 240) each own 64 rows of a 128-row held tile and walk the same stages:
+// wgmma for the score products (both operands in shared memory), the
+// elementwise chain, wgmma for the accumulation (bf16 fragments from
+// registers), release. The two meet only at the ring, so one's elementwise
+// work runs while the other's products hold the tensor cores (named-barrier
+// turns, tried, took 6 ms more a layer at the Kimi-K2 cell's shape). A
+// warpgroup skips the streamed tiles wholly above the diagonal for its own
+// rows. Blocks of one (b, h) run together, so its streamed tiles are read
+// from L2.
+//   kDkv: held A1 = k, A2 = v; streamed B1 = q, B2 = dO (48 rows)
+//         Sᵀ = A1·B1ᵀ, dPᵀ = A2·B2ᵀ; P = exp(Sᵀ·scale - lse), dS as above;
+//         dv += bf16(P)ᵀ·B2, dk += dSᵀ·B1; written once at the end
+//   kDq:  held A1 = q, A2 = dO; streamed B1 = k, B2 = v (64 rows)
+//         S = A1·B1ᵀ, dP = A2·B2ᵀ; dq += dS·B1
+// Each (q row, k row) pair costs 640 column-units of products in kDkv (S
+// 192, dP 128, dV 128, dK 192) and 512 in kDq: 1152, against 1344 in the
+// four-launch form and 640 that kobench/flops_mla.py::k3_operations counts
+// for a backward. Registers of a consumer thread: kDkv dk [64, 192] f32 96,
+// dv [64, 128] 64, Sᵀ and dPᵀ [64, 48] 24 each: 208 of 240 (at 64 streamed
+// rows, 224, ptxas spilled 280 bytes); kDq dq 96, S and dP [64, 64] 32
+// each: 160. The producer at 24 frees exactly what the consumers take at
+// 240 (the block's 384 × 168 at launch; at 32 the consumers waited
+// forever). ptxas (nvcc 12.9): both 168 registers at launch, 0 spilled
+// bytes; shared memory 176,312 B (kDkv: 80 KB held, 3 × 30 KB streamed)
+// and 207,416 B (kDq: 80 KB, 3 × 40 KB); one block an SM. Each
+// accumulator sums its 16-row k-steps in the order the four-launch form
+// does, and the gradients came out as its bits at every shape tried.
+//
 // Rounding points: the chain's, except one a one-pass kernel cannot keep:
 // the chain normalises P before its cast to bf16, the kernel divides the f32
 // sum of P·v by the row's sum after it. The division by sqrt(dh) is
@@ -77,6 +117,7 @@
 // correctly rounded quotient for |x| >= 2^-100 (ops/attention.py::divisor).
 // exp is ex2.approx of x·log2(e); nothing drops to fp8 or TF32.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -91,7 +132,7 @@ constexpr float kMask = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kMaxSmem = 232448;
 
-enum Kind { kFwd = 0, kDv = 1, kDk = 2, kDq = 3 };
+enum Kind { kFwd = 0, kDv = 1, kDk = 2, kDq = 3, kDkv = 4 };
 
 struct Args {
   const __nv_bfloat16* q;
@@ -187,6 +228,19 @@ __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t a, uint64_t b,
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale));
+}
+
+// d (64 x 48, f32) = (scale ? d : 0) + A·Bᵀ, A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n48(float* d, uint64_t a, uint64_t b,
+                                            int scale) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, %24, %25, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
       : "l"(a), "l"(b), "r"(scale));
 }
 
@@ -332,7 +386,7 @@ __device__ __forceinline__ void load_tile(uint32_t tile,
   }
 }
 
-// issues s (this warp's 16 rows of a 64 x kBN score tile over the
+// starts s (this warp's 16 rows of a 64 x kBN score tile over the
 // warpgroup) = rows of `a` (kBM rows) times rows of `b` (kBN rows), over dh
 // columns [k0, k0 + KC); both operands K-major
 template <int KC, int BN>
@@ -688,6 +742,360 @@ __global__ void __launch_bounds__(256)
   }
 }
 
+// ---- the pair's backward: warp-specialised walks fed by TMA --------------
+
+// Tiles of kinds kDkv and kDq (see the header): a held tile of 128 rows, 64
+// for each consumer warpgroup; streamed tiles of kBn rows (48 where dK and
+// dV both sit in registers) in a ring of kStages, each with its lse and D
+// rows (kDkv).
+template <int KIND, int DQK, int DV>
+struct Pipe {
+  static constexpr int kHeldRows = 128;
+  static constexpr int kBn = KIND == kDkv ? 48 : 64;
+  static constexpr int kStages = 3;
+  static constexpr int kThreads = 384;   // producer, two consumers
+  static constexpr int kA1 = kHeldRows * DQK * 2, kA2 = kHeldRows * DV * 2;
+  static constexpr int kB1 = kBn * DQK * 2, kB2 = kBn * DV * 2;
+  static constexpr int kStage = kB1 + kB2;
+  static constexpr int kTiles = kA1 + kA2 + kStages * kStage;
+  static constexpr int kStats = 2 * kBn * 4;
+  // barriers: the held tiles', then full and empty of each stage
+  static constexpr int kBars = 8 * (1 + 2 * kStages);
+  // + 1 KB to align the tiles to the swizzle's 1024-byte period
+  static constexpr int kSmem = kTiles + kStages * kStats + kBars + 1024;
+  static_assert(kSmem <= kMaxSmem, "tiles exceed shared memory");
+  static_assert(kBn % 16 == 0 && (kBn * 128) % 1024 == 0,
+                "streamed tiles are whole 8-row swizzle periods");
+  static_assert(DQK % 64 == 0 && DV % 64 == 0, "tiles are blocks of 64 columns");
+};
+
+// What the pair's backward kernels read: the four tiles' TMA maps (held A1,
+// A2; streamed B1, B2), the outputs and the row statistics.
+struct TmaArgs {
+  CUtensorMap held1, held2, stream1, stream2;
+  __nv_bfloat16* out1;   // dk (kDkv) or dq: [b, s, h, DQK] contiguous
+  __nv_bfloat16* out2;   // dv (kDkv): [b, s, h, DV] contiguous
+  const float* lse;      // [b, h, s]
+  const float* delta;    // [b, h, s]
+  int bh, heads, seq;
+  float scale;
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
+}
+
+// an arrival that also expects `bytes` of copies to complete the phase
+__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
+}
+
+// box (64 columns from `col`, `rows` rows from `row`) of head `head` of
+// batch entry `batch` into `dst`, completing on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int col, int head, int row,
+                                         int batch, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(head),
+         "r"(row), "r"(batch), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t a, uint64_t b,
+                                         int scale) {
+  static_assert(BN == 64 || BN == 48, "streamed tiles of 64 or 48 rows");
+  if constexpr (BN == 64) wgmma_ss_n64(d, a, b, scale);
+  else wgmma_ss_n48(d, a, b, scale);
+}
+
+// starts s (this warp's 16 rows of 64 x BN) = a 64-row slice `a` of a held
+// tile whose 64-column blocks lie ABLOCK bytes apart, times the BN rows of
+// `b`, over KC columns; both operands K-major
+template <int KC, int BN, int ABLOCK>
+__device__ __forceinline__ void start_scores(float s[BN / 8][4], uint32_t a,
+                                             uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < KC / 16; ++kk) {
+    const int k = kk * 16;
+    const uint32_t in = (k & 63) * 2;
+    wgmma_ss<BN>(&s[0][0], smem_desc(a + (k >> 6) * ABLOCK + in, 16, 1024),
+                 smem_desc(b + (k >> 6) * (BN * 128) + in, 16, 1024), kk);
+  }
+}
+
+// starts acc (16 rows by KC columns) += p (16 x BN, bf16 fragments) times
+// the BN rows of `c` (MN-major); 192 columns as 128 + 64
+template <int KC, int BN>
+__device__ __forceinline__ void start_accumulate(float acc[KC / 8][4],
+                                                 uint32_t p[BN / 16][4],
+                                                 uint32_t c) {
+#pragma unroll
+  for (int kk = 0; kk < BN / 16; ++kk) {
+    const uint32_t at = c + kk * 16 * 128;
+    if constexpr (KC == 192) {
+      wgmma_rs<128>(&acc[0][0], p[kk], smem_desc(at, BN * 128, 1024));
+      wgmma_rs<64>(&acc[16][0], p[kk],
+                   smem_desc(at + 2 * (BN * 128), BN * 128, 1024));
+    } else {
+      wgmma_rs<KC>(&acc[0][0], p[kk], smem_desc(at, BN * 128, 1024));
+    }
+  }
+}
+
+// the accumulator's 16 rows of this warp, bf16, to rows of a contiguous
+// [b, s, h, KC] output
+template <int KC>
+__device__ __forceinline__ void store_rows(float acc[KC / 8][4],
+                                           __nv_bfloat16* out, const int row[2],
+                                           int b, int h, int heads, int seq,
+                                           int t) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (row[i] >= seq) continue;
+    __nv_bfloat16* dst =
+        out + ((long long)b * seq + row[i]) * heads * KC + h * KC + 2 * t;
+#pragma unroll
+    for (int n = 0; n < KC / 8; ++n)
+      *reinterpret_cast<uint32_t*>(dst + n * 8) =
+          pack(acc[n][2 * i], acc[n][2 * i + 1]);
+  }
+}
+
+// kDkv: dK and dV of 128 K/V rows, walking the Q/dO tiles from the
+// diagonal down; kDq: dQ of 128 Q rows, walking the K/V tiles up to the
+// diagonal. Warpgroup 0 is the producer (one warp starts the TMA copies and
+// reads the lse and D rows of each streamed tile), warpgroups 1 and 2
+// consume, each owning 64 held rows; they meet only at the ring's barriers.
+template <int KIND, int DQK, int DV>
+__global__ void __launch_bounds__(Pipe<KIND, DQK, DV>::kThreads, 1)
+    attention_kernel_pipelined(const __grid_constant__ TmaArgs a) {
+  using P = Pipe<KIND, DQK, DV>;
+  constexpr int kBN = P::kBn;
+  constexpr bool kHoldsQ = KIND == kDq;
+  constexpr int kHeldBlock = P::kHeldRows * 128;   // between 64-column blocks
+  extern __shared__ __align__(128) uint8_t raw[];
+  const uint32_t raw_at = static_cast<uint32_t>(__cvta_generic_to_shared(raw));
+  const uint32_t base = (raw_at + 1023) & ~1023u;
+  uint8_t* smem = raw + (base - raw_at);
+  const uint32_t held1 = base, held2 = base + P::kA1;
+  const uint32_t ring = held2 + P::kA2;   // stage s: B1, then B2
+  float* stats = reinterpret_cast<float*>(smem + P::kTiles);   // stage s: lse, D
+  const uint32_t held_bar = base + P::kTiles + P::kStages * P::kStats;
+  const uint32_t full0 = held_bar + 8, empty0 = full0 + 8 * P::kStages;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int bh = blockIdx.z * 65535 + blockIdx.y;
+  if (bh >= a.bh) return;
+  const int b = bh / a.heads, h = bh % a.heads;
+  const int seq = a.seq;
+  // the held tile's first row; kDq starts with the longest walks
+  const int r0 = (kHoldsQ ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * P::kHeldRows;
+  const int first = kHoldsQ ? 0 : r0;
+  const int last = kHoldsQ ? min(r0 + P::kHeldRows, seq) : seq;
+  const int n_tiles = (last - first + kBN - 1) / kBN;
+
+  if (tid == 0) {
+    mbar_init(held_bar, 1);
+    for (int s = 0; s < P::kStages; ++s) {
+      mbar_init(full0 + 8 * s, 32);    // the producer warp's lanes
+      mbar_init(empty0 + 8 * s, 8);    // the consumer warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp < 4) {   // the producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (warp != 0) return;
+    if (lane == 0) {
+      mbar_expect(held_bar, P::kA1 + P::kA2);
+#pragma unroll
+      for (int c = 0; c < DQK / 64; ++c)
+        tma_load(held1 + c * kHeldBlock, &a.held1, c * 64, h, r0, b, held_bar);
+#pragma unroll
+      for (int c = 0; c < DV / 64; ++c)
+        tma_load(held2 + c * kHeldBlock, &a.held2, c * 64, h, r0, b, held_bar);
+    }
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % P::kStages;
+      const int s0 = first + j * kBN;
+      mbar_wait(empty0 + 8 * s, ((j / P::kStages) & 1) ^ 1);
+      if (!kHoldsQ) {   // the streamed Q rows' lse and D
+        float* st = stats + s * 2 * kBN;
+        for (int i = lane; i < kBN; i += 32) {
+          const int m = s0 + i;
+          const long long at = (long long)bh * seq + m;
+          st[i] = m < seq ? a.lse[at] : INFINITY;
+          st[kBN + i] = m < seq ? a.delta[at] : 0.f;
+        }
+      }
+      if (lane == 0) {
+        const uint32_t full = full0 + 8 * s;
+        const uint32_t b1 = ring + s * P::kStage, b2 = b1 + P::kB1;
+        mbar_expect(full, P::kStage);
+#pragma unroll
+        for (int c = 0; c < DQK / 64; ++c)
+          tma_load(b1 + c * (kBN * 128), &a.stream1, c * 64, h, s0, b, full);
+#pragma unroll
+        for (int c = 0; c < DV / 64; ++c)
+          tma_load(b2 + c * (kBN * 128), &a.stream2, c * 64, h, s0, b, full);
+      } else {
+        mbar_arrive(full0 + 8 * s);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+  const int cw = (warp >> 2) - 1;   // consumer warpgroup 0 or 1
+  const int wr = warp & 3, g = lane >> 2, t = lane & 3;
+  const int hr0 = r0 + 64 * cw;     // its held rows
+  const int row[2] = {hr0 + wr * 16 + g, hr0 + wr * 16 + g + 8};
+  const uint32_t a1 = held1 + cw * 64 * 128, a2 = held2 + cw * 64 * 128;
+  float lse_r[2] = {0.f, 0.f}, d_r[2] = {0.f, 0.f};   // kDq: the held rows'
+  if (kHoldsQ) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const long long at = (long long)bh * seq + row[i];
+      lse_r[i] = row[i] < seq ? a.lse[at] : INFINITY;
+      d_r[i] = row[i] < seq ? a.delta[at] : 0.f;
+    }
+  }
+  float acc1[DQK / 8][4];                          // dk or dq
+  float acc2[KIND == kDkv ? DV / 8 : 1][4];        // dv
+#pragma unroll
+  for (int n = 0; n < DQK / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc1[n][e] = 0.f;
+#pragma unroll
+  for (int n = 0; n < (KIND == kDkv ? DV / 8 : 1); ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc2[n][e] = 0.f;
+
+  mbar_wait(held_bar, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % P::kStages;
+    const int s0 = first + j * kBN;   // first row of the streamed tile
+    const uint32_t b1 = ring + s * P::kStage, b2 = b1 + P::kB1;
+    // some pair of this tile is on or below the diagonal for these rows;
+    // the diagonal crosses it
+    const bool live = kHoldsQ ? s0 <= hr0 + 63 : s0 + kBN - 1 >= hr0;
+    const bool diag = kHoldsQ ? s0 + kBN > hr0 : s0 < hr0 + 64;
+    mbar_wait(full0 + 8 * s, (j / P::kStages) & 1);
+
+    float sc[kBN / 8][4] = {}, dp[kBN / 8][4] = {};
+    if (live) {
+      wg_fence();
+      start_scores<DQK, kBN, kHeldBlock>(sc, a1, b1);
+      start_scores<DV, kBN, kHeldBlock>(dp, a2, b2);
+      wg_commit();
+      wg_wait();
+      const float* st = stats + s * 2 * kBN;
+#pragma unroll
+      for (int jn = 0; jn < kBN / 8; ++jn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = jn * 8 + 2 * t + (e & 1);
+          const int r = row[e >> 1];
+          float x = __fmul_rn(bf16_round(sc[jn][e]), a.scale);
+          if (diag && (kHoldsQ ? s0 + col > r : s0 + col < r)) x = kMask;
+          const float lse = kHoldsQ ? lse_r[e >> 1] : st[col];
+          const float d = kHoldsQ ? d_r[e >> 1] : st[kBN + col];
+          const float p = fexp(x - lse);
+          dp[jn][e] = __fmul_rn(p * (dp[jn][e] - d), a.scale);
+          sc[jn][e] = p;
+        }
+      uint32_t df[kBN / 16][4], pf[kBN / 16][4];
+      to_fragments<kBN>(dp, df);
+      if constexpr (KIND == kDkv) {
+        to_fragments<kBN>(sc, pf);
+        wg_fence();
+        start_accumulate<DV, kBN>(acc2, pf, b2);    // dv += bf16(P)ᵀ·dO
+        start_accumulate<DQK, kBN>(acc1, df, b1);   // dk += dSᵀ·q
+      } else {
+        wg_fence();
+        start_accumulate<DQK, kBN>(acc1, df, b1);   // dq += dS·k
+      }
+      wg_commit();
+      wg_wait();
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * s);
+  }
+
+  store_rows<DQK>(acc1, a.out1, row, b, h, a.heads, seq, t);
+  if constexpr (KIND == kDkv)
+    store_rows<DV>(acc2, a.out2, row, b, h, a.heads, seq, t);
+}
+
+// CUresult cuTensorMapEncodeTiled(...), fetched from the driver at run time
+// so the library links against the runtime alone
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// a bf16 [batch, seq, heads, cols] tensor (head columns contiguous; strides
+// in elements) read as boxes of 64 columns by `rows` rows of one head,
+// 128-byte swizzled (the layout of `swz`); rows past seq read as zeros
+bool tensor_map(CUtensorMap* m, const void* p, int cols, int heads, int seq,
+                int batch, long long sh, long long ss, long long sb, int rows) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)cols, (cuuint64_t)heads,
+                              (cuuint64_t)seq, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p),
+                dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int KIND, int DQK, int DV, bool SCALE>
 int launch(const PairArgs& a, cudaStream_t stream) {
   using P = Plan<KIND, DQK, DV>;
@@ -703,45 +1111,101 @@ int launch(const PairArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// One launch of the pair's backward (kind kDkv: dk to a.out, dv to `out2`;
+// kind kDq: dq to a.out).
+template <int KIND, int DQK, int DV>
+int launch_pipelined(const PairArgs& a, void* out2, cudaStream_t stream) {
+  using P = Pipe<KIND, DQK, DV>;
+  const int batch = a.bh / a.heads;
+  // dO: contiguous [b, s, h, DV]
+  const long long doh = DV, dos = (long long)a.heads * DV, dob = dos * a.seq;
+  TmaArgs t;
+  const bool ok =
+      KIND == kDq
+          ? tensor_map(&t.held1, a.q, DQK, a.heads, a.seq, batch, a.sqh, a.sqs, a.sqb, P::kHeldRows) &&
+            tensor_map(&t.held2, a.dout, DV, a.heads, a.seq, batch, doh, dos, dob, P::kHeldRows) &&
+            tensor_map(&t.stream1, a.k, DQK, a.heads, a.seq, batch, a.skh, a.sks, a.skb, P::kBn) &&
+            tensor_map(&t.stream2, a.v, DV, a.heads, a.seq, batch, a.svh, a.svs, a.svb, P::kBn)
+          : tensor_map(&t.held1, a.k, DQK, a.heads, a.seq, batch, a.skh, a.sks, a.skb, P::kHeldRows) &&
+            tensor_map(&t.held2, a.v, DV, a.heads, a.seq, batch, a.svh, a.svs, a.svb, P::kHeldRows) &&
+            tensor_map(&t.stream1, a.q, DQK, a.heads, a.seq, batch, a.sqh, a.sqs, a.sqb, P::kBn) &&
+            tensor_map(&t.stream2, a.dout, DV, a.heads, a.seq, batch, doh, dos, dob, P::kBn);
+  if (!ok) return cudaErrorInvalidValue;
+  t.out1 = a.out;
+  t.out2 = static_cast<__nv_bfloat16*>(out2);
+  t.lse = a.lse;
+  t.delta = a.delta;
+  t.bh = a.bh;
+  t.heads = a.heads;
+  t.seq = a.seq;
+  t.scale = a.rinv;
+  const cudaError_t e = cudaFuncSetAttribute(
+      attention_kernel_pipelined<KIND, DQK, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((a.seq + P::kHeldRows - 1) / P::kHeldRows,
+            a.bh < 65535 ? a.bh : 65535, (a.bh + 65534) / 65535);
+  attention_kernel_pipelined<KIND, DQK, DV><<<grid, P::kThreads, P::kSmem, stream>>>(t);
+  return cudaGetLastError();
+}
+
+// Equal widths: the four lock-step kinds. The pair: the forward as they
+// run it, the backward as kinds kDkv and kDq on the pipeline.
 template <int DQK, int DV, bool SCALE>
-int launch_kind(int kind, const PairArgs& a, cudaStream_t stream) {
-  switch (kind) {
-    case kFwd: return launch<kFwd, DQK, DV, SCALE>(a, stream);
-    case kDv: return launch<kDv, DQK, DV, SCALE>(a, stream);
-    case kDk: return launch<kDk, DQK, DV, SCALE>(a, stream);
-    case kDq: return launch<kDq, DQK, DV, SCALE>(a, stream);
+int launch_kind(int kind, const PairArgs& a, void* out2, cudaStream_t stream) {
+  if constexpr (DQK != DV) {
+    switch (kind) {
+      case kFwd: return launch<kFwd, DQK, DV, SCALE>(a, stream);
+      case kDkv: return launch_pipelined<kDkv, DQK, DV>(a, out2, stream);
+      case kDq: return launch_pipelined<kDq, DQK, DV>(a, out2, stream);
+    }
+  } else {
+    switch (kind) {
+      case kFwd: return launch<kFwd, DQK, DV, SCALE>(a, stream);
+      case kDv: return launch<kDv, DQK, DV, SCALE>(a, stream);
+      case kDk: return launch<kDk, DQK, DV, SCALE>(a, stream);
+      case kDq: return launch<kDq, DQK, DV, SCALE>(a, stream);
+    }
   }
   return cudaErrorInvalidValue;
 }
 
 template <int KIND>
 int smem_of(int dqk, int dv) {
-  if (dqk == 192 && dv == 128) return Plan<KIND, 192, 128>::kSmem;
-  if (dqk != dv) return -1;
-  switch (dqk) {
-    case 64: return Plan<KIND, 64, 64>::kSmem;
-    case 128: return Plan<KIND, 128, 128>::kSmem;
-    case 256: return Plan<KIND, 256, 256>::kSmem;
-    case 512: return Plan<KIND, 512, 512>::kSmem;
+  if (dqk == 192 && dv == 128) {
+    if constexpr (KIND == kFwd) return Plan<KIND, 192, 128>::kSmem;
+    else if constexpr (KIND == kDkv || KIND == kDq) return Pipe<KIND, 192, 128>::kSmem;
+    else return -1;
   }
-  return -1;
+  if constexpr (KIND == kDkv) return -1;
+  else {
+    if (dqk != dv) return -1;
+    switch (dqk) {
+      case 64: return Plan<KIND, 64, 64>::kSmem;
+      case 128: return Plan<KIND, 128, 128>::kSmem;
+      case 256: return Plan<KIND, 256, 256>::kSmem;
+      case 512: return Plan<KIND, 512, 512>::kSmem;
+    }
+    return -1;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// One launch of kind `kind` (0 forward, 1 dV, 2 dK, 3 dQ) at head widths
-// `dqk` = `dv` (64, 128, 256 or 512; S divided by `root`) or (`dqk`, `dv`) =
-// (192, 128) (S times the scale `rinv`). Returns cudaGetLastError(), or
+// One launch of kind `kind` at head widths `dqk` = `dv` (64, 128, 256 or
+// 512; S divided by `root`; kinds 0 forward, 1 dV, 2 dK, 3 dQ) or (`dqk`,
+// `dv`) = (192, 128) (S times the scale `rinv`; kinds 0 forward, 4 dK and
+// dV, dk to `out` and dv to `out2`, 3 dQ). Returns cudaGetLastError(), or
 // cudaErrorInvalidValue for a kind or widths the library does not hold.
 int ko_attention(int kind, int dqk, int dv, const void* q, const void* k,
                  const void* v, const void* dout, const void* lse,
-                 const void* delta, void* out, void* lse_out, long long sqb,
-                 long long sqs, long long sqh, long long skb, long long sks,
-                 long long skh, long long svb, long long svs, long long svh,
-                 int batch, int heads, int seq, float root, float rinv,
-                 void* stream) {
+                 const void* delta, void* out, void* out2, void* lse_out,
+                 long long sqb, long long sqs, long long sqh, long long skb,
+                 long long sks, long long skh, long long svb, long long svs,
+                 long long svh, int batch, int heads, int seq, float root,
+                 float rinv, void* stream) {
   PairArgs a{{static_cast<const __nv_bfloat16*>(q),
                static_cast<const __nv_bfloat16*>(k),
                static_cast<const __nv_bfloat16*>(v),
@@ -753,13 +1217,13 @@ int ko_attention(int kind, int dqk, int dv, const void* q, const void* k,
                sqb, sqs, sqh, batch * heads, heads, seq, root, rinv},
               skb, sks, skh, svb, svs, svh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dqk == 192 && dv == 128) return launch_kind<192, 128, true>(kind, a, s);
+  if (dqk == 192 && dv == 128) return launch_kind<192, 128, true>(kind, a, out2, s);
   if (dqk != dv) return cudaErrorInvalidValue;
   switch (dqk) {
-    case 64: return launch_kind<64, 64, false>(kind, a, s);
-    case 128: return launch_kind<128, 128, false>(kind, a, s);
-    case 256: return launch_kind<256, 256, false>(kind, a, s);
-    case 512: return launch_kind<512, 512, false>(kind, a, s);
+    case 64: return launch_kind<64, 64, false>(kind, a, out2, s);
+    case 128: return launch_kind<128, 128, false>(kind, a, out2, s);
+    case 256: return launch_kind<256, 256, false>(kind, a, out2, s);
+    case 512: return launch_kind<512, 512, false>(kind, a, out2, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -792,6 +1256,7 @@ int ko_attention_smem(int kind, int dqk, int dv) {
     case kDv: return smem_of<kDv>(dqk, dv);
     case kDk: return smem_of<kDk>(dqk, dv);
     case kDq: return smem_of<kDq>(dqk, dv);
+    case kDkv: return smem_of<kDkv>(dqk, dv);
   }
   return -1;
 }

@@ -9,11 +9,14 @@ of the kv product, its own strides), the scores times `scale` in place of
 the division by sqrt(dh), the output [b, s, h·128].
 A bf16 CUDA input goes through hand-written CUDA kernels
 (`csrc/attention.cu`, built by `ops/_build.py`; its header note gives the
-design), one launch forward and four back, held in a
+design), one launch forward and, back, the kinds `BACKWARD` lists for the
+widths (four at equal widths, three at the pair), held in a
 `torch.autograd.Function`; a CPU input takes `attention_reference`, the
 plain PyTorch chain the step ran before, operation for operation; any other
 CUDA input raises. `causal_attention.launches` counts the kernels'
-launches: `LAUNCHES_FORWARD` a forward, `LAUNCHES_BACKWARD` a backward.
+launches: `LAUNCHES_FORWARD` a forward, `LAUNCHES_BACKWARD[(dqk, dv)]` a
+backward; `causal_attention.fused_backward_launches` counts the pair's
+fused dK·dV walk.
 
 Source note:
 
@@ -23,10 +26,12 @@ Source note:
   times forward and back: at 8 heads of 8192-token rows, 12.9 GB a sweep.
   The kernels keep each tile of scores in registers.
 * What bounds it on the H100: the products (two b·h·s²·dh products over
-  the causal half forward, eight back), run by wgmma from tiles in shared
-  memory; at dh = 512 far above the card's 295 operations a byte, and in
-  practice held back by re-reading the streamed tiles from L2 and by the
-  softmax running between the products (the kernels' header).
+  the causal half forward, eight back at equal widths, seven at the pair),
+  run by wgmma from tiles in shared memory; at dh = 512 far above the
+  card's 295 operations a byte, and in practice held back by re-reading
+  the streamed tiles from L2 and by the softmax running between the
+  products. The pair's backward is two warp-specialised walks fed by TMA,
+  which overlap those (the kernels' header).
 * The library is built for head widths `WIDTHS` (q, k and v alike) and
   for the pairs of q·k and v widths in `PAIRS`, which take a scale. A head
   width between the `WIDTHS` runs at the next one up, q, k and v copied
@@ -56,9 +61,13 @@ WIDTHS = (64, 128, 256, 512)   # head widths the library is built for
 PAIRS = ((192, 128),)          # (q·k width, v width) built with a scale
 MAX_DH = WIDTHS[-1]
 MASK = -1e30
-KINDS = {"fwd": 0, "dv": 1, "dk": 2, "dq": 3}
+KINDS = {"fwd": 0, "dv": 1, "dk": 2, "dq": 3, "dkv": 4}
+# the backward's launches at each built pair of widths, in order: D, then
+# the walks (at the pair one fused dK·dV walk in place of dV and dK)
+BACKWARD = {**{(w, w): ("delta", "dv", "dk", "dq") for w in WIDTHS},
+            (192, 128): ("delta", "dkv", "dq")}
 LAUNCHES_FORWARD = 1
-LAUNCHES_BACKWARD = 4          # D, dV, dK, dQ
+LAUNCHES_BACKWARD = {widths: len(kinds) for widths, kinds in BACKWARD.items()}
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -140,6 +149,7 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 causal_attention.launches = 0
+causal_attention.fused_backward_launches = 0
 
 
 class _FusedCausalAttention(torch.autograd.Function):
@@ -228,7 +238,7 @@ def _library() -> ctypes.CDLL:
     lib = _build.load("attention")
     vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_float)
-    lib.ko_attention.argtypes = [i32, i32, i32, *[vp] * 8, *[i64] * 9, i32,
+    lib.ko_attention.argtypes = [i32, i32, i32, *[vp] * 9, *[i64] * 9, i32,
                                  i32, i32, f32, f32, vp]
     lib.ko_attention_delta.argtypes = [i32, vp, vp, vp, i32, i32, i32, vp]
     lib.ko_attention_smem.argtypes = [i32, i32, i32]
@@ -248,11 +258,11 @@ def _ptr(t: torch.Tensor | None):
 
 
 def _launch(kind: str, q, k, v, out, dh: int, scale=None, do=None,
-            lse=None, delta=None, lse_out=None) -> None:
+            lse=None, delta=None, lse_out=None, out2=None) -> None:
     bsz, seq, h, width = q.shape
     _ok(_library().ko_attention(
         KINDS[kind], width, v.shape[3], _ptr(q), _ptr(k), _ptr(v), _ptr(do),
-        _ptr(lse), _ptr(delta), _ptr(out), _ptr(lse_out),
+        _ptr(lse), _ptr(delta), _ptr(out), _ptr(out2), _ptr(lse_out),
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], bsz, h, seq,
         *factors(dh, scale), torch.cuda.current_stream(q.device).cuda_stream),
         kind)
@@ -274,8 +284,10 @@ def _launch_forward(q, k, v, dh: int | None = None,
 def _launch_backward(q, k, v, o, lse, do, dh: int | None = None,
                      scale: float | None = None):
     """dq, dk (contiguous [b, s, h, q's width]) and dv (v's width) for a
-    contiguous dO shaped as o, from `_launch_forward`'s o and lse."""
+    contiguous dO shaped as o, from `_launch_forward`'s o and lse: the
+    launches `BACKWARD` lists for the widths."""
     bsz, seq, h, width = q.shape
+    kinds = BACKWARD[(width, v.shape[3])]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     delta = torch.empty_like(lse)
     _ok(_library().ko_attention_delta(o.shape[3], o.data_ptr(), do.data_ptr(),
@@ -284,10 +296,14 @@ def _launch_backward(q, k, v, o, lse, do, dh: int | None = None,
     dq, dk = (torch.empty(q.shape, dtype=q.dtype, device=q.device)
               for _ in range(2))
     dv = torch.empty(o.shape, dtype=q.dtype, device=q.device)
-    for kind, out in (("dv", dv), ("dk", dk), ("dq", dq)):
+    outs = {"dv": (dv, None), "dk": (dk, None), "dq": (dq, None),
+            "dkv": (dk, dv)}
+    for kind in kinds[1:]:
+        out, out2 = outs[kind]
         _launch(kind, q, k, v, out, dh or width, scale, do=do, lse=lse,
-                delta=delta)
-    causal_attention.launches += LAUNCHES_BACKWARD
+                delta=delta, out2=out2)
+    causal_attention.launches += len(kinds)
+    causal_attention.fused_backward_launches += int("dkv" in kinds)
     return dq, dk, dv
 
 
@@ -301,7 +317,8 @@ def kernel_resources() -> dict:
     out = {}
     for entry in _build.build_log("attention").split(
             "Compiling entry function")[1:]:
-        kernel = re.search(r"attention_kernelILi(\d)ELi(\d+)ELi(\d+)ELb", entry)
+        kernel = re.search(
+            r"attention_kernel(?:_pipelined)?ILi(\d)ELi(\d+)ELi(\d+)E", entry)
         delta = re.search(r"delta_kernelILi(\d+)E", entry)
         regs = re.search(r"Used (\d+) registers", entry)
         if not (kernel or delta) or not regs:

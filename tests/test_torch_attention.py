@@ -87,14 +87,27 @@ def test_plain_version_is_the_former_chain_bit_for_bit(dtype, shape):
     assert torch.equal(got_grad, want_grad)
 
 
-def tiled_attention(q, k, v, do, held, streamed, scale=None):
+def _parts(r0, held, parts, seq):
+    """The row groups of the held tile at `r0` (`parts` of held // parts
+    rows, cut at seq) as (first row, rows)."""
+    sub = held // parts
+    return [(c0, torch.arange(c0, min(c0 + sub, seq)))
+            for c0 in range(r0, r0 + held, sub) if c0 < seq]
+
+
+def tiled_attention(q, k, v, do, held, streamed, scale=None, kv_walk=None,
+                    q_walk=None):
     """The kernels' walks in plain f32 PyTorch, for [b, s, h, dh] inputs
     (v and dO may be narrower; `scale` in place of 1/sqrt(dh)):
     forward per `held`-row Q tile over `streamed`-row K/V tiles, skipping
     those wholly above the diagonal and masking only the tiles the diagonal
     crosses, with an online max and sum; the log-sum-exp; D = rowsum(dO∘O);
-    dK and dV per `held`-row K tile over Q tiles from the diagonal down; dQ
-    per Q tile. Returns (o [b, s, h·dh], dq, dk, dv, tiles skipped in
+    dK and dV in one walk per held K tile over Q tiles from the diagonal
+    down, P and dS formed once for both; dQ per held Q tile over K tiles up
+    to it. `kv_walk` and `q_walk`, where given, are those walks' own (held rows,
+    streamed rows, parts): each held tile is cut into `parts` row groups
+    (the pair's consumer warpgroups) that skip the streamed tiles wholly
+    masked for them. Returns (o [b, s, h·dh], dq, dk, dv, tiles skipped in
     forward)."""
     bsz, seq, h, dh = q.shape
     dv_w = v.shape[3]
@@ -134,25 +147,35 @@ def tiled_attention(q, k, v, do, held, streamed, scale=None):
         lse[:, :, rows] = m_i + torch.log(l_i)
     delta = (doh * o).sum(-1)
     dq, dk, dv = torch.zeros_like(qh), torch.zeros_like(kh), torch.zeros_like(vh)
-    for n0 in range(0, seq, held):
-        cols = torch.arange(n0, min(n0 + held, seq))
-        for m0 in range(n0, seq, streamed):
-            rows = torch.arange(m0, min(m0 + streamed, seq))
-            p = torch.exp(scores(rows, cols, m0 < n0 + held)
-                          - lse[:, :, rows, None])
-            dv[:, :, cols] += p.transpose(-1, -2) @ doh[:, :, rows]
-            dp = doh[:, :, rows] @ vh[:, :, cols].transpose(-1, -2)
-            ds = p * (dp - delta[:, :, rows, None]) / root
-            dk[:, :, cols] += ds.transpose(-1, -2) @ qh[:, :, rows]
-    for m0 in range(0, seq, held):
-        rows = torch.arange(m0, min(m0 + held, seq))
-        for n0 in range(0, min(m0 + held, seq), streamed):
-            cols = torch.arange(n0, min(n0 + streamed, seq))
-            p = torch.exp(scores(rows, cols, n0 + streamed > m0)
-                          - lse[:, :, rows, None])
-            dp = doh[:, :, rows] @ vh[:, :, cols].transpose(-1, -2)
-            ds = p * (dp - delta[:, :, rows, None]) / root
-            dq[:, :, rows] += ds @ kh[:, :, cols]
+    kv_held, kv_streamed, kv_parts = kv_walk or (held, streamed, 1)
+    for n0 in range(0, seq, kv_held):
+        for c0, cols in _parts(n0, kv_held, kv_parts, seq):
+            sub = kv_held // kv_parts
+            for m0 in range(n0, seq, kv_streamed):
+                rows = torch.arange(m0, min(m0 + kv_streamed, seq))
+                if m0 + kv_streamed <= c0:      # wholly above the diagonal
+                    assert bool((rows[:, None] < cols[None, :]).all())
+                    continue
+                p = torch.exp(scores(rows, cols, m0 < c0 + sub)
+                              - lse[:, :, rows, None])
+                dp = doh[:, :, rows] @ vh[:, :, cols].transpose(-1, -2)
+                ds = p * (dp - delta[:, :, rows, None]) / root
+                dv[:, :, cols] += p.transpose(-1, -2) @ doh[:, :, rows]
+                dk[:, :, cols] += ds.transpose(-1, -2) @ qh[:, :, rows]
+    q_held, q_streamed, q_parts = q_walk or (held, streamed, 1)
+    for m0 in range(0, seq, q_held):
+        for c0, rows in _parts(m0, q_held, q_parts, seq):
+            sub = q_held // q_parts
+            for n0 in range(0, min(m0 + q_held, seq), q_streamed):
+                cols = torch.arange(n0, min(n0 + q_streamed, seq))
+                if n0 >= c0 + sub:              # wholly above the diagonal
+                    assert bool((cols[None, :] > rows[:, None]).all())
+                    continue
+                p = torch.exp(scores(rows, cols, n0 + q_streamed > c0)
+                              - lse[:, :, rows, None])
+                dp = doh[:, :, rows] @ vh[:, :, cols].transpose(-1, -2)
+                ds = p * (dp - delta[:, :, rows, None]) / root
+                dq[:, :, rows] += ds @ kh[:, :, cols]
     return (o.transpose(1, 2).reshape(bsz, seq, h * dv_w),
             *(t.transpose(1, 2) for t in (dq, dk, dv)), skipped)
 
@@ -182,11 +205,34 @@ def test_tile_walk_matches_autograd_of_the_plain_version(seq, dh, held,
         torch.testing.assert_close(g, w.detach(), rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("seq,held,streamed", [(37, 16, 8), (100, 64, 32)])
+# the pair's backward tiles: `held` as (forward, backward held rows, parts),
+# `streamed` as (forward, dK·dV walk, dQ walk)
+PAIR_HELD, PAIR_STREAMED = (64, 128, 2), (64, 64, 64)
+
+
+@pytest.mark.parametrize("seq,held,streamed", [
+    (37, 16, 8), (100, 64, 32),
+    # the pair's kernels' own tiles: s cut raggedly, one held tile, a
+    # second warpgroup past s, rows on tile edges
+    pytest.param(129, PAIR_HELD, PAIR_STREAMED, id="pair-129"),
+    pytest.param(64, PAIR_HELD, PAIR_STREAMED, id="pair-64"),
+    pytest.param(200, PAIR_HELD, PAIR_STREAMED, id="pair-200"),
+    pytest.param(256, PAIR_HELD, PAIR_STREAMED, id="pair-256"),
+    # the same walks at thin tiles: many skipped and crossed tiles
+    pytest.param(37, (16, 16, 2), (8, 4, 8), id="pair-thin-37"),
+])
 def test_tile_walk_at_latent_widths_matches_autograd_of_the_plain_version(
         seq, held, streamed):
     """q and k 192 wide, v 128 (a view of a wider kv product), scores
-    times the softmax scale: the walks with the widths apart."""
+    times the softmax scale: the walks with the widths apart; at the pair's
+    tiles, the fused dK·dV walk and the dQ walk over 128 held rows as two
+    warpgroups' 64."""
+    walks = {}
+    if isinstance(held, tuple):
+        (held, bwd_held, parts), (streamed, kv_streamed, q_streamed) = \
+            held, streamed
+        walks = dict(kv_walk=(bwd_held, kv_streamed, parts),
+                     q_walk=(bwd_held, q_streamed, parts))
     gen = torch.Generator().manual_seed(seq)
     q, k = (torch.randn((2, seq, 2, 192), generator=gen).requires_grad_()
             for _ in range(2))
@@ -198,7 +244,8 @@ def test_tile_walk_at_latent_widths_matches_autograd_of_the_plain_version(
     do = torch.randn(out.shape, generator=torch.Generator().manual_seed(7))
     want = (out, *torch.autograd.grad(out, (q, k, v), do))
     *got, _ = tiled_attention(q.detach(), k.detach(), v.detach(),
-                              do.reshape(2, seq, 2, 128), held, streamed, scale)
+                              do.reshape(2, seq, 2, 128), held, streamed, scale,
+                              **walks)
     # as the square walks above: the same f32 arithmetic in another order
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w.detach(), rtol=1e-5, atol=1e-5)
@@ -366,6 +413,62 @@ def test_built_widths_are_the_librarys():
                                        attention.KINDS.items()}
 
 
+@pytest.mark.parametrize("widths", [(w, w) for w in attention.WIDTHS]
+                         + list(attention.PAIRS))
+def test_backward_launches_the_plan_of_its_widths(widths, monkeypatch):
+    """`_launch_backward` makes the launches `BACKWARD` lists for the
+    widths, in order (D, then dV, dK and dQ at equal widths; D, the fused
+    dK·dV walk and dQ at the pair), each to its outputs, and counts them;
+    the library's dispatch takes exactly those kinds at those widths."""
+    dqk, dv = widths
+    calls = []
+
+    class Library:
+        def ko_attention_delta(self, dh, *_):
+            calls.append(("delta", dh))
+            return 0
+
+        def ko_attention(self, kind, w1, w2, q, k, v, do, lse, delta, out,
+                         out2, lse_out, *_):
+            calls.append((kind, w1, w2, out, out2))
+            return 0
+
+    monkeypatch.setattr(attention, "_library", Library)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=0))
+    q, k = (torch.zeros((1, 8, 2, dqk), dtype=torch.bfloat16)
+            for _ in range(2))
+    v, o, do = (torch.zeros((1, 8, 2, dv), dtype=torch.bfloat16)
+                for _ in range(3))
+    lse = torch.zeros((1, 2, 8))
+    launches = causal_attention.launches
+    fused = causal_attention.fused_backward_launches
+    dq, dk, dvg = attention._launch_backward(
+        q, k, v, o, lse, do, dqk, None if dqk == dv else 0.1)
+    kinds = attention.BACKWARD[widths]
+    assert kinds[0] == "delta" and calls[0] == ("delta", dv)
+    outs = {"dv": (dvg, None), "dk": (dk, None), "dq": (dq, None),
+            "dkv": (dk, dvg)}
+    assert calls[1:] == [
+        (attention.KINDS[kind], dqk, dv, *(t if t is None else t.data_ptr()
+                                           for t in outs[kind]))
+        for kind in kinds[1:]]
+    assert attention.LAUNCHES_BACKWARD[widths] == len(kinds) == len(calls)
+    assert causal_attention.launches == launches + len(kinds)
+    assert causal_attention.fused_backward_launches == fused + (
+        "dkv" in kinds)
+    # the C dispatch: the pair's branch, then the equal widths'
+    src = (Path(attention.__file__).parents[1] / "csrc"
+           / "attention.cu").read_text()
+    body = src[src.index("int launch_kind("):]
+    pair, square = body[:body.index("} else {")], body[body.index("} else {"):]
+    branch = pair if dqk != dv else square[:square.index("return cudaErrorInvalidValue")]
+    taken = {attention.KINDS[n.lower()] for n in re.findall(
+        r"case k(\w+): return", branch)}
+    assert taken == {attention.KINDS["fwd"]} | {
+        attention.KINDS[kind] for kind in kinds[1:]}
+
+
 @pytest.mark.parametrize("dh,width", [(1, 64), (8, 64), (64, 64), (65, 128),
                                       (96, 128), (200, 256), (512, 512)])
 def test_a_head_width_runs_at_the_next_built_width(dh, width):
@@ -518,13 +621,16 @@ def test_forward_launches_the_kernels_once_forward_and_back(dev):
     params = {k: t.to(dev).requires_grad_(t.dim() > 0)
               for k, t in step.build_host_params(cfg).items()}
     x = torch.randn((2, 256, 512), device=dev).bfloat16()
-    fwd, bwd = attention.LAUNCHES_FORWARD, attention.LAUNCHES_BACKWARD
+    fwd = attention.LAUNCHES_FORWARD
+    bwd = attention.LAUNCHES_BACKWARD[(512, 512)]
     before = causal_attention.launches
+    fused = causal_attention.fused_backward_launches
     y = step._forward(params, x, cfg)
     assert causal_attention.launches == before + fwd
     y.float().square().sum().backward()
     torch.cuda.synchronize()
     assert causal_attention.launches == before + fwd + bwd
+    assert causal_attention.fused_backward_launches == fused
     with torch.no_grad():
         step._forward(params, x, cfg)
     assert causal_attention.launches == before + 2 * fwd + bwd
@@ -532,6 +638,14 @@ def test_forward_launches_the_kernels_once_forward_and_back(dev):
     step._forward({k: t.detach().float() for k, t in params.items()},
                   x.float(), f32)
     assert causal_attention.launches == before + 2 * fwd + bwd
+    # the pair: three launches back, one of them the fused dK·dV walk
+    q, k, kv, do = _latent_on_card(1, 256, 2, dev)
+    before = causal_attention.launches
+    _latent_run(q, k, kv, do)
+    torch.cuda.synchronize()
+    assert attention.LAUNCHES_BACKWARD[(192, 128)] == 3
+    assert causal_attention.launches == before + fwd + 3
+    assert causal_attention.fused_backward_launches == fused + 1
 
 
 def _latent_on_card(bsz, seq, h, dev, seed=0):
@@ -575,16 +689,24 @@ def _latent_run(q, k, kv, do, heads=None):
     return o.reshape(bsz, seq, h * 128), dq, dk, dv
 
 
+# lengths that cut the 128-row held and 64-row streamed tiles raggedly,
+# and b·h that leave the last wave of 132 blocks partial
+LATENT_SHAPES = [(1, 100, 2), (2, 333, 4), (1, 8192, 64), (1, 1000, 3),
+                 (3, 129, 5), (2, 64, 7)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(1, 100, 2), (2, 333, 4), (1, 8192, 64)])
+@pytest.mark.parametrize("shape", LATENT_SHAPES)
 def test_latent_kernels_match_the_plain_version_on_the_card(dev, shape):
     """K3's (192, 128) kernels, v a view of the kv product, scores times
     the softmax scale: the same two limits as the square widths."""
     q, k, kv, do = _latent_on_card(*shape, dev)
     launches = causal_attention.launches
+    fused = causal_attention.fused_backward_launches
     got = _latent_run(q, k, kv, do)
     assert causal_attention.launches == launches + attention.LAUNCHES_FORWARD \
-        + attention.LAUNCHES_BACKWARD
+        + attention.LAUNCHES_BACKWARD[(192, 128)]
+    assert causal_attention.fused_backward_launches == fused + 1
     want = _latent_run(q, k, kv, do, heads=16)
     torch.cuda.synchronize()
     for name, g, w in zip(("o", "dq", "dk", "dv"), got, want):
@@ -597,8 +719,10 @@ def test_latent_kernels_match_the_plain_version_on_the_card(dev, shape):
 
 
 @pytest.mark.cuda
-def test_latent_backward_is_bit_identical_run_to_run(dev):
-    q, k, kv, do = _latent_on_card(1, 8192, 64, dev, seed=3)
+@pytest.mark.parametrize("shape", [(1, 8192, 64), (1, 1000, 3), (3, 129, 5),
+                                   (2, 64, 7)])
+def test_latent_backward_is_bit_identical_run_to_run(dev, shape):
+    q, k, kv, do = _latent_on_card(*shape, dev, seed=3)
     first = _latent_run(q, k, kv, do)
     second = _latent_run(q, k, kv, do)
     torch.cuda.synchronize()
