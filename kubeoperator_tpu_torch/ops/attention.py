@@ -1,22 +1,22 @@
 """Fused causal attention of the tenant models (kernel K3).
 
 `causal_attention(q, k, v)` is the attention of
-`workloads/step.py::_forward`: q, k and v are [b, s, h, dh] (in the step,
-views of one qkv product with row stride 3·h·dh), the output [b, s, h·dh].
+`workloads/dense.py::forward`: q, k and v are [b, s, h, dh] (there, views
+of one qkv product with row stride 3·h·dh), the output [b, s, h·dh].
 `causal_attention(q, k, v, scale)` is latent attention's
 (`workloads/mla_moe.py`): q and k [b, s, h, 192], v [b, s, h, 128] (a view
 of the kv product, its own strides), the scores times `scale` in place of
 the division by sqrt(dh), the output [b, s, h·128].
-A bf16 CUDA input goes through hand-written CUDA kernels
-(`csrc/attention.cu`, built by `ops/_build.py`; its header note gives the
-design), one launch forward and, back, the kinds `BACKWARD` lists for the
-widths (four at equal widths, three at the pair), held in a
-`torch.autograd.Function`; a CPU input takes `attention_reference`, the
-plain PyTorch chain the step ran before, operation for operation; any other
-CUDA input raises. `causal_attention.launches` counts the kernels'
+The wrapper alone picks the path: a bf16 CUDA input goes through
+hand-written CUDA kernels (`csrc/attention.cu`, built by `ops/_build.py`;
+its header note gives the design), one launch forward and, back, the kinds
+`BACKWARD` lists for the widths (four at equal widths, three at the pair),
+held in a `torch.autograd.Function`; an f32 or CPU input takes
+`attention_reference`, the plain PyTorch chain, operation for operation;
+any other input raises. `causal_attention.launches` counts the kernels'
 launches: `LAUNCHES_FORWARD` a forward, `LAUNCHES_BACKWARD[(dqk, dv)]` a
-backward; `causal_attention.fused_backward_launches` counts the pair's
-fused dK·dV walk.
+backward; `causal_attention.fused_backward_launches` the pair's fused
+dK·dV walk.
 
 Source note:
 
@@ -100,6 +100,16 @@ def kernel_width(dh: int) -> int:
     return next(w for w in WIDTHS if w >= dh)
 
 
+def unbuilt_widths(dqk: int, dv: int, scaled: bool) -> str | None:
+    """None where the kernels take q·k heads `dqk` and v heads `dv` wide
+    (`scaled`: a pair, with a scale), else what they take instead; the
+    wrapper and the step's build-time check both ask here."""
+    if not scaled:
+        return None if dqk <= MAX_DH else f"head widths up to {MAX_DH}, not {dqk}"
+    return None if (dqk, dv) in PAIRS else (
+        f"latent attention's head widths {PAIRS} with a scale, not {(dqk, dv)}")
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            scale: float | None = None) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -120,12 +130,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dim() != 4 or q.numel() == 0:
         raise ValueError(f"q must be a non-empty [b, s, h, dh], got "
                          f"{tuple(q.shape)}")
-    if scale is None and q.shape[3] > MAX_DH:
-        raise ValueError(f"head width {q.shape[3]} is above {MAX_DH}, the "
-                         f"widest the kernels are built for")
-    if scale is not None and (q.shape[3], v.shape[3]) not in PAIRS:
-        raise ValueError(f"head widths {(q.shape[3], v.shape[3])} with a "
-                         f"scale: the kernels are built for {PAIRS}")
+    why = unbuilt_widths(q.shape[3], v.shape[3], scale is not None)
+    if why:
+        raise ValueError(f"the kernels take {why}")
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
 
@@ -135,9 +142,9 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Causal softmax attention of [b, s, h, dh] q, k, v as [b, s, h·dh]
     (with `scale`: v of a pair's narrower width, the output at v's width):
     the kernels for bf16 CUDA tensors (saving what backward needs only
-    where a gradient is wanted), the plain version for CPU tensors;
-    ValueError for any other input."""
-    if q.device.type == "cpu":
+    where a gradient is wanted), the plain version for f32 tensors on any
+    device and for CPU tensors; ValueError for any other input."""
+    if q.dtype == torch.float32 or q.device.type == "cpu":
         return attention_reference(q, k, v, scale)
     _check(q, k, v, scale)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad

@@ -56,7 +56,7 @@ from kubeoperator_tpu_torch.parallel.mesh import (
     mesh_device,
     mesh_sizes,
 )
-from kubeoperator_tpu_torch.weights import bf16_from_f64, local_shard, place
+from kubeoperator_tpu_torch.weights import from_f64, local_shard, place
 
 # model dims: every sharded dim divides any power-of-two axis size up to 8
 # (see axis_sizes)
@@ -184,13 +184,8 @@ def host_params_and_batch(sizes: dict[str, int], seed: int = 0,
     n_exp = sp
     rng = np.random.default_rng(seed)
 
-    def cast(a: np.ndarray) -> torch.Tensor:
-        if cfg.dtype == "bfloat16":
-            return bf16_from_f64(a)
-        return torch.from_numpy(a.astype(np.float32))
-
     def w(*shape, scale=0.05):
-        return cast(rng.standard_normal(shape) * scale)
+        return from_f64(rng.standard_normal(shape) * scale, cfg.dtype)
 
     host = {
         "wqkv": w(pp, cfg.d_model, 3 * cfg.d_model),
@@ -200,8 +195,8 @@ def host_params_and_batch(sizes: dict[str, int], seed: int = 0,
         "w_exp": w(pp, n_exp, cfg.d_model, cfg.d_model),
         "w_head": w(cfg.d_model, cfg.d_model),
     }
-    x = cast(rng.standard_normal(
-        (cfg.b_local * sizes["dp"], cfg.s_local * sp, cfg.d_model)))
+    x = from_f64(rng.standard_normal(
+        (cfg.b_local * sizes["dp"], cfg.s_local * sp, cfg.d_model)), cfg.dtype)
     return host, x
 
 

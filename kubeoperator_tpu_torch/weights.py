@@ -42,6 +42,15 @@ def bf16_from_f64(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(out.view(np.int16)).view(torch.bfloat16)
 
 
+def from_f64(a: np.ndarray, dtype: str) -> torch.Tensor:
+    """A float64 host draw as a CPU tensor of a configuration's `dtype`
+    ("bfloat16" through `bf16_from_f64`, else float32), rounded as the
+    reference rounds it."""
+    if dtype == "bfloat16":
+        return bf16_from_f64(a)
+    return torch.from_numpy(a.astype(np.float32))
+
+
 def host_tensor(a: np.ndarray) -> torch.Tensor:
     """numpy array (bfloat16 included) → CPU tensor of the same type."""
     a = np.ascontiguousarray(a).reshape(np.shape(a))   # keeps a 0-d array 0-d

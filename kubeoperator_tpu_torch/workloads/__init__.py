@@ -3,7 +3,8 @@
 * `partition` — the partition-rule engine: ordered (regex, spec) rules
   over /-joined tree paths, shard/gather fns, the `explain_rules` report;
 * `step` — the (data, fsdp, tp) AdamW step behind ONE `compile_step`
-  seam: pjit when explicit specs exist, shard_map fallback;
+  seam: pjit when explicit specs exist, shard_map fallback; its `MODELS`
+  maps a configuration to its model, `dense` or `mla_moe` (Kimi K2);
 * `harness` — `run_training` and the per-axis scaling / MFU sweep behind
   the `KO_TPU_WORKLOAD_RESULT` line;
 * `checkpoint` — content-hashed per-leaf checkpoints, the reference's

@@ -42,13 +42,13 @@ from kubeoperator_tpu_torch.parallel.mesh import (
 )
 from kubeoperator_tpu_torch.parallel.validation_net import NetConfig
 from kubeoperator_tpu_torch.utils.spans import span
-from kubeoperator_tpu_torch.workloads.mla_moe import MlaMoeConfig
 from kubeoperator_tpu_torch.workloads.partition import (
     make_shard_and_gather_fns,
     replicated_specs,
 )
 from kubeoperator_tpu_torch.workloads.step import (
     WORKLOAD_AXES,
+    ModelConfig,
     analytic_step_flops,
     build_batch,
     init_train_state,
@@ -62,7 +62,7 @@ ROW_SCHEMA = ("axis", "devices", "mesh", "mode", "steps", "steps_per_s",
               "ok")
 
 
-def run_training(mesh: DeviceMesh, cfg: NetConfig | MlaMoeConfig | None = None,
+def run_training(mesh: DeviceMesh, cfg: ModelConfig | None = None,
                  steps: int = 4, mode: str = "auto", rules=None, seed: int = 0,
                  state=None, on_step=None, return_state: bool = False,
                  checkpoint_every: int = 0, on_checkpoint=None) -> dict:

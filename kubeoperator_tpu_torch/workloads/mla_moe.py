@@ -36,9 +36,9 @@ card's slice of the vocabulary (`vocab_held` ids).
 
 Rounding points (bf16): the products and the residual stream in the
 parameters' type; the norms' statistics, the router, the rotary rotation,
-the routed experts' weighting and sum, and the loss in f32. Attention goes
-through K3's (192, 128) kernels on a card (`ops/attention.py`) and the
-plain chain on the host, as the dense stage's does.
+the routed experts' weighting and sum, and the loss in f32. Attention is
+`ops/attention.py::causal_attention`, as the dense stage's is. The module
+exports the step's model seam (`workloads/step.py::MODELS`).
 
 `expert_loads` counts, on the device, the routed slots each held expert
 received in each MoE layer; it is read once, when asked.
@@ -54,10 +54,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from kubeoperator_tpu_torch.ops.attention import (
-    attention_reference,
-    causal_attention,
-)
+from kubeoperator_tpu_torch.ops.attention import causal_attention, unbuilt_widths
 from kubeoperator_tpu_torch.utils.spans import span
 
 
@@ -239,6 +236,14 @@ def default_rules():
     )
 
 
+def adamw_lr(cfg: MlaMoeConfig) -> float:
+    return cfg.lr
+
+
+def attention_unbuilt(cfg: MlaMoeConfig) -> str | None:
+    return unbuilt_widths(cfg.qk_head_dim, cfg.v_head_dim, scaled=True)
+
+
 def _seed(seed: int, leaf: int) -> int:
     return (seed * 1_000_003 + leaf) % 2 ** 63
 
@@ -265,7 +270,7 @@ def init_params(cfg: MlaMoeConfig, seed: int, device) -> dict:
     return out
 
 
-def token_batch(cfg: MlaMoeConfig, rows: int, seed: int) -> torch.Tensor:
+def host_batch(cfg: MlaMoeConfig, rows: int, seed: int) -> torch.Tensor:
     """[rows, s_local + 1] int64 token ids, uniform over the vocabulary
     slice, from numpy's `default_rng(seed)`: inputs are [:, :-1], targets
     [:, 1:]."""
@@ -298,14 +303,6 @@ class ExpertLoads:
 expert_loads = ExpertLoads()
 
 
-def _attend(q, k, v, scale):
-    # f32 keeps the plain chain on every device; bf16 goes to the fused
-    # kernels on a card and to the same plain chain on the host
-    if q.dtype == torch.float32:
-        return attention_reference(q, k, v, scale)
-    return causal_attention(q, k, v, scale)
-
-
 def mla(x: torch.Tensor, p: dict, pre: str, cfg: MlaMoeConfig,
         rope: tuple) -> torch.Tensor:
     """Multi-head latent attention of normed x [b, s, hidden]."""
@@ -322,7 +319,7 @@ def mla(x: torch.Tensor, p: dict, pre: str, cfg: MlaMoeConfig,
     q = torch.cat((q[..., :nope], rotate(q[..., nope:], *rope)), dim=-1)
     k = torch.cat((kv[..., :nope], k_pe[:, :, None].expand(bsz, seq, h, dr)),
                   dim=-1)
-    o = _attend(q, k, kv[..., nope:], softmax_scale(cfg))
+    o = causal_attention(q, k, kv[..., nope:], softmax_scale(cfg))
     return o @ p[pre + "wo"]
 
 
@@ -439,14 +436,16 @@ def logits_of(p: dict, x: torch.Tensor, cfg: MlaMoeConfig) -> torch.Tensor:
     return rms_norm(x, p["final_norm"], cfg.rms_norm_eps) @ p["head"]
 
 
-def forward(p: dict, ids: torch.Tensor, cfg: MlaMoeConfig) -> torch.Tensor:
-    """Logits [b, s, vocab_held] of token ids [b, s]."""
-    x = hidden(p, ids, cfg)
+def forward(p: dict, x: torch.Tensor, cfg: MlaMoeConfig,
+            tp=None) -> torch.Tensor:
+    """Logits [b, s, vocab_held] of token ids x [b, s] (no tp pair here)."""
+    x = hidden(p, x, cfg)
     with span("model.head"):
         return logits_of(p, x, cfg)
 
 
-def loss_sum(p: dict, batch: torch.Tensor, cfg: MlaMoeConfig) -> torch.Tensor:
+def loss_sum(p: dict, batch: torch.Tensor, cfg: MlaMoeConfig,
+             tp=None) -> torch.Tensor:
     """The f32 sum over this rank's rows of the cross-entropy of each next
     id, for a [rows, s + 1] batch of ids."""
     x = hidden(p, batch[:, :-1], cfg)
@@ -454,6 +453,10 @@ def loss_sum(p: dict, batch: torch.Tensor, cfg: MlaMoeConfig) -> torch.Tensor:
         logits = logits_of(p, x, cfg).float()
         return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                                batch[:, 1:].reshape(-1), reduction="sum")
+
+
+def loss_count(cfg: MlaMoeConfig, rows: int) -> float:
+    return float(rows * cfg.s_local)
 
 
 def step_flops(cfg: MlaMoeConfig, tokens: int) -> float:

@@ -4,10 +4,10 @@ forward function resident and answer batched requests under a latency SLO
 
 The seam mirrors training. `compile_forward` is `compile_step`'s
 forward-only twin — pjit when the partition rules produced a spec tree,
-shard_map otherwise — over the same `_forward` dense stage and the same
-rules. `run_serving` is the harness: a deterministic seeded request
-stream, per-request latency samples, and an `on_request` hook, the serving
-twin of training's `on_step`:
+shard_map otherwise — over the same model's `forward` and the same rules.
+`run_serving` is the harness: a deterministic seeded request stream,
+per-request latency samples, and an `on_request` hook, the serving twin of
+training's `on_step`:
 
 * ``("stop", why)`` — cooperative drain: stop at the next request boundary;
 * ``("reshard", m)`` — degrade: carry on on mesh `m` (or on a `MeshSpec`
@@ -33,7 +33,6 @@ from kubeoperator_tpu_torch.parallel.mesh import (
     mesh_sizes,
 )
 from kubeoperator_tpu_torch.parallel.validation_net import NetConfig
-from kubeoperator_tpu_torch.workloads.mla_moe import MlaMoeConfig
 from kubeoperator_tpu_torch.workloads.partition import (
     PartitionError,
     make_shard_and_gather_fns,
@@ -43,7 +42,7 @@ from kubeoperator_tpu_torch.workloads.partition import (
 from kubeoperator_tpu_torch.workloads.step import (
     DATA_AXES,
     WORKLOAD_AXES,
-    _forward,
+    ModelConfig,
     build_batch,
     build_host_params,
     check_attention_width,
@@ -51,7 +50,9 @@ from kubeoperator_tpu_torch.workloads.step import (
     default_rules,
     gather_on_use,
     megatron_pair,
+    model_of,
     param_shapes,
+    resolve_mode,
 )
 
 
@@ -62,7 +63,7 @@ def serve_rules(cfg=None):
     return default_rules(cfg)
 
 
-def compile_forward(mesh: DeviceMesh, cfg: NetConfig | MlaMoeConfig | None = None,
+def compile_forward(mesh: DeviceMesh, cfg: ModelConfig | None = None,
                     specs=None, mode: str = "auto"):
     """The serve-side seam: returns ``(forward_fn, used)`` where
     ``forward_fn(params, x) -> y`` on this rank's blocks (y: this rank's
@@ -70,15 +71,10 @@ def compile_forward(mesh: DeviceMesh, cfg: NetConfig | MlaMoeConfig | None = Non
     PARAMS-ONLY spec tree; ``mode`` is ``auto`` (pjit when specs exist, else
     shard_map), or a forced ``pjit`` / ``shard_map``."""
     cfg = cfg or NetConfig()
+    forward = model_of(cfg).forward
     check_workload_mesh(mesh, "serving")
     check_attention_width(mesh, cfg)
-    if mode == "auto":
-        mode = "pjit" if specs is not None else "shard_map"
-    if mode == "pjit":
-        if specs is None:
-            raise PartitionError(
-                "compile mode 'pjit' needs explicit shardings — run the "
-                "partition rules first, or use mode 'shard_map'")
+    if resolve_mode(mode, specs) == "pjit":
         megatron = megatron_pair(specs)
         groups = {a: mesh.get_group(a) for a in WORKLOAD_AXES}
         tp = groups["tp"] if megatron else None
@@ -88,24 +84,20 @@ def compile_forward(mesh: DeviceMesh, cfg: NetConfig | MlaMoeConfig | None = Non
             whole = gather_on_use(
                 {k: v for k, v in p.items() if k != "step"}, specs, groups,
                 megatron)
-            return _forward(whole, xb, cfg, tp)
+            return forward(whole, xb, cfg, tp)
 
         return global_forward, "pjit"
-
-    if mode != "shard_map":
-        raise PartitionError(
-            f"unknown compile mode {mode!r} (auto|pjit|shard_map)")
 
     @torch.no_grad()
     def local_forward(p, xb):
         # params replicated, xb is this rank's (data, fsdp) batch block;
         # forward is per-example, so no collective is needed
-        return _forward(p, xb, cfg)
+        return forward(p, xb, cfg)
 
     return local_forward, "shard_map"
 
 
-def make_forward(mesh: DeviceMesh, cfg: NetConfig | MlaMoeConfig | None = None,
+def make_forward(mesh: DeviceMesh, cfg: ModelConfig | None = None,
                  rules=None, mode: str = "auto"):
     """Rules → param specs → forward, in one call: returns
     ``(forward_fn, specs_or_None, used_mode)``. The forward of an
@@ -118,9 +110,7 @@ def make_forward(mesh: DeviceMesh, cfg: NetConfig | MlaMoeConfig | None = None,
             rules if rules is not None else serve_rules(cfg),
             param_shapes(cfg))
     fn, used = compile_forward(mesh, cfg, specs=specs, mode=mode)
-    if used == "shard_map":
-        specs = None
-    return fn, specs, used
+    return fn, None if used == "shard_map" else specs, used
 
 
 def _digest(y: torch.Tensor, mesh: DeviceMesh) -> float:

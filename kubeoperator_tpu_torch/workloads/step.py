@@ -1,21 +1,16 @@
 """The sharded-training tenant workload: a (data, fsdp, tp) AdamW step
 behind one compile seam (port of `workloads/step.py`).
 
-Models, picked by the configuration's type in one place for each of the
-param tree, the initial state, the batch, the forward, the loss, the FLOP
-count and the partition rules:
+`MODELS` is the one place a configuration's type picks its model module:
+`NetConfig` the validation net's dense stage (`workloads/dense.py`),
+`MlaMoeConfig` the DeepSeek-V3 block of Kimi K2 (`workloads/mla_moe.py`).
+Both export the same seam (shapes, draw, batch, forward, loss, FLOPs,
+rules, frozen leaves, lr, attention's widths); a new model is one more such
+module and one more entry.
 
-* `NetConfig`: the validation net's dense stage (rms-norm → causal
-  multi-head attention → Megatron-shape FFN → readout, loss sum(y²)) over
-  the net's own dims, with the reference's rounding points (`_forward`);
-* `MlaMoeConfig`: the DeepSeek-V3 block of Kimi K2, latent attention and
-  routed experts on one expert-parallel card's share, over token ids with
-  a cross-entropy loss (`workloads/mla_moe.py`).
-
-The dense stage's arithmetic is the reference's, below. The reference
-writes it once in global-array form and lets its compiler lay it out; the
-port runs it as explicit SPMD on each rank's blocks, in two modes with the
-reference's names:
+The reference writes the dense stage once in global-array form and lets
+its compiler lay it out; the port runs each model as explicit SPMD on each
+rank's blocks, in two modes with the reference's names:
 
 * **pjit** (when the partition rules produced a spec tree, any spec
   tree the reference's `jax.jit` takes): every rank holds its blocks of
@@ -46,25 +41,18 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import NamedTuple
 
-import numpy as np
 import torch
 import torch.distributed as dist
-import torch.nn.functional as F
 from torch.distributed.device_mesh import DeviceMesh
 
-from kubeoperator_tpu_torch.ops.attention import (
-    MAX_DH,
-    PAIRS,
-    attention_reference,
-    causal_attention,
-)
-from kubeoperator_tpu_torch.parallel.comm import all_gather, psum, replicate
+from kubeoperator_tpu_torch.parallel.comm import all_gather, psum
 from kubeoperator_tpu_torch.parallel.mesh import MeshSpec, mesh_device, mesh_sizes
-from kubeoperator_tpu_torch.parallel.validation_net import NetConfig, rms
+from kubeoperator_tpu_torch.parallel.validation_net import NetConfig
 from kubeoperator_tpu_torch.utils.errors import ValidationError
 from kubeoperator_tpu_torch.utils.spans import span
-from kubeoperator_tpu_torch.weights import bf16_from_f64, local_shard, spec_axes
-from kubeoperator_tpu_torch.workloads import mla_moe
+from kubeoperator_tpu_torch.weights import local_shard, spec_axes
+from kubeoperator_tpu_torch.workloads import dense, mla_moe
+from kubeoperator_tpu_torch.workloads.dense import ADAMW_LR
 from kubeoperator_tpu_torch.workloads.mla_moe import MlaMoeConfig
 from kubeoperator_tpu_torch.workloads.partition import (
     PartitionError,
@@ -79,28 +67,30 @@ from kubeoperator_tpu_torch.workloads.partition import (
 WORKLOAD_AXES = ("data", "fsdp", "tp")
 # the axes that shard the batch (and join the loss/grad reductions)
 DATA_AXES = ("data", "fsdp")
-BATCH_SPEC = (DATA_AXES, None, None)
+BATCH_SPEC = (DATA_AXES,)          # a batch's rows; its other dims whole
 
-# AdamW for this workload (NetConfig.lr is the validation net's SGD step)
-ADAMW_LR = 1e-2
 ADAMW_WEIGHT_DECAY = 1e-4
 # optax.adamw's defaults
 ADAM_B1, ADAM_B2, ADAM_EPS, ADAM_EPS_ROOT = 0.9, 0.999, 1e-8, 0.0
 _INT32_MAX = 2 ** 31 - 1
 
+MODELS = {NetConfig: dense, MlaMoeConfig: mla_moe}
+ModelConfig = NetConfig | MlaMoeConfig      # the keys of MODELS
+
+
+def model_of(cfg):
+    """The model module of a configuration (`MODELS`); ValidationError for
+    a type with none."""
+    if type(cfg) not in MODELS:
+        raise ValidationError(f"no model for a {type(cfg).__name__}: the "
+                              f"workload takes {tuple(t.__name__ for t in MODELS)}")
+    return MODELS[type(cfg)]
+
 
 def default_rules(cfg=None):
-    """The workload's layout as ordered (regex, spec) rules. First match
-    wins; `w_head` is named so `explain_rules` reads as documentation. An
-    `MlaMoeConfig` takes its own (`mla_moe.default_rules`)."""
-    if isinstance(cfg, MlaMoeConfig):
-        return mla_moe.default_rules()
-    return (
-        (r"wqkv$", ("fsdp", None)),        # ZeRO-3: rows sharded on fsdp
-        (r"w_in$", (None, "tp")),          # megatron col-parallel
-        (r"w_out$", ("tp", None)),         # megatron row-parallel
-        (r"w_head$", (None, None)),        # replicated readout
-    )
+    """The workload's layout as ordered (regex, spec) rules: the model's
+    own (the dense stage's without a `cfg`)."""
+    return model_of(cfg or NetConfig()).default_rules()
 
 
 @dataclass(frozen=True)
@@ -133,54 +123,17 @@ def _opt_state(count, mu, nu) -> tuple:
             MaskedState(inner_state=EmptyState()), EmptyState())
 
 
-def torch_dtype(cfg: NetConfig | MlaMoeConfig) -> torch.dtype:
-    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
-
-
-def _cast(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
-    """A float64 host draw in `dtype`, rounded as the reference rounds it."""
-    if dtype == torch.bfloat16:
-        return bf16_from_f64(a)
-    return torch.from_numpy(a.astype(np.float32))
-
-
-def param_shapes(cfg: NetConfig | MlaMoeConfig | None = None) -> dict:
-    """Abstract param tree, in the reference's draw order."""
+def param_shapes(cfg: ModelConfig | None = None) -> dict:
+    """Abstract param tree, in the model's draw order."""
     cfg = cfg or NetConfig()
-    if isinstance(cfg, MlaMoeConfig):
-        return {name: ShapeDtypeStruct(shape, dt)
-                for name, (shape, dt) in mla_moe.param_shapes(cfg).items()}
-    d, f = cfg.d_model, cfg.d_ff
-    dt = torch_dtype(cfg)
-    shapes = {
-        "wqkv": (d, 3 * d),
-        "w_in": (d, f),
-        "w_out": (f, d),
-        "w_head": (d, d),
-        # a non-trainable scalar rides the tree on purpose: the rule
-        # engine's scalar exemption is part of the workload contract
-        "step": (),
-    }
-    return {name: ShapeDtypeStruct(shape, torch.float32 if name == "step" else dt)
-            for name, shape in shapes.items()}
+    return {name: ShapeDtypeStruct(shape, dt)
+            for name, (shape, dt) in model_of(cfg).param_shapes(cfg).items()}
 
 
-def build_host_params(cfg: NetConfig | MlaMoeConfig | None = None,
-                      seed: int = 0) -> dict:
-    """Param tree as CPU tensors from numpy's `default_rng(seed)`, drawn and
-    rounded as the reference draws them (an `MlaMoeConfig`: its own
-    per-leaf draw, `mla_moe.init_params`, on the host)."""
+def build_host_params(cfg: ModelConfig | None = None, seed: int = 0) -> dict:
+    """Param tree as CPU tensors, drawn as the model draws them."""
     cfg = cfg or NetConfig()
-    if isinstance(cfg, MlaMoeConfig):
-        return mla_moe.init_params(cfg, seed, "cpu")
-    rng = np.random.default_rng(seed)
-    out = {}
-    for name, sds in param_shapes(cfg).items():
-        if name == "step":
-            out[name] = torch.zeros((), dtype=torch.float32)
-        else:
-            out[name] = _cast(rng.standard_normal(sds.shape) * 0.05, sds.dtype)
-    return out
+    return model_of(cfg).init_params(cfg, seed, "cpu")
 
 
 def _const(value: float, like: torch.Tensor) -> torch.Tensor:
@@ -243,20 +196,17 @@ def make_optimizer(lr: float | None = None) -> AdamW:
     return AdamW(lr=ADAMW_LR if lr is None else lr)
 
 
-def adamw_lr(cfg: NetConfig | MlaMoeConfig) -> float:
-    """The configuration's AdamW learning rate: an `MlaMoeConfig`'s own
-    `lr`; the dense stage's `ADAMW_LR` (`NetConfig.lr` is the validation
-    net's SGD step)."""
-    return cfg.lr if isinstance(cfg, MlaMoeConfig) else ADAMW_LR
+def adamw_lr(cfg: ModelConfig) -> float:
+    """The configuration's AdamW learning rate (the model's `adamw_lr`)."""
+    return model_of(cfg).adamw_lr(cfg)
 
 
-def frozen_leaves(cfg: NetConfig | MlaMoeConfig) -> tuple[str, ...]:
-    """The leaves of the param tree no gradient moves: the step counter
-    (and an `MlaMoeConfig`'s routing biases)."""
-    return mla_moe.frozen(cfg) if isinstance(cfg, MlaMoeConfig) else ("step",)
+def frozen_leaves(cfg: ModelConfig) -> tuple[str, ...]:
+    """The leaves of the param tree no gradient moves (the model's)."""
+    return model_of(cfg).frozen(cfg)
 
 
-def train_state_shapes(cfg: NetConfig | None = None) -> dict:
+def train_state_shapes(cfg: ModelConfig | None = None) -> dict:
     """Abstract TrainState tree ``{"params", "opt"}``: the Adam moments
     carry the params' names (matched by the same rules), and `opt/0/count`
     is a 0-d int32 leaf the scalar exemption claims."""
@@ -266,124 +216,47 @@ def train_state_shapes(cfg: NetConfig | None = None) -> dict:
                               dict(params), dict(params))}
 
 
-def build_host_state(cfg: NetConfig | None = None, seed: int = 0) -> dict:
+def build_host_state(cfg: ModelConfig | None = None, seed: int = 0) -> dict:
     """Host TrainState: seeded params + the optimizer's zero state."""
     params = build_host_params(cfg, seed)
     return {"params": params, "opt": make_optimizer().init(params)}
 
 
-def init_train_state(mesh: DeviceMesh, cfg: NetConfig | MlaMoeConfig | None = None,
+def init_train_state(mesh: DeviceMesh, cfg: ModelConfig | None = None,
                      seed: int = 0, specs=None) -> dict:
-    """Host TrainState placed onto `mesh`: this rank's blocks per the spec
-    tree (pjit), the whole of it otherwise (shard_map). An `MlaMoeConfig`'s
-    parameters are drawn on the mesh's device itself."""
-    if isinstance(cfg, MlaMoeConfig):
-        params = mla_moe.init_params(cfg, seed, mesh_device(mesh))
-        host = {"params": params, "opt": make_optimizer().init(params)}
-    else:
-        host = build_host_state(cfg, seed)
+    """TrainState drawn for the mesh's device and placed onto `mesh`: this
+    rank's blocks per the spec tree (pjit), the whole of it otherwise
+    (shard_map)."""
+    cfg = cfg or NetConfig()
+    params = model_of(cfg).init_params(cfg, seed, mesh_device(mesh))
+    host = {"params": params, "opt": make_optimizer().init(params)}
     if specs is None:
         specs = replicated_specs(host)
     shard_fn, _ = make_shard_and_gather_fns(mesh, specs)
     return shard_fn(host)
 
 
-def build_batch(mesh: DeviceMesh, cfg: NetConfig | MlaMoeConfig | None = None,
+def build_batch(mesh: DeviceMesh, cfg: ModelConfig | None = None,
                 seed: int = 1) -> torch.Tensor:
-    """This rank's block of the global [b_local·data·fsdp, seq, d_model]
-    batch (an `MlaMoeConfig`: [b_local·data·fsdp, seq + 1] token ids),
-    cut over the (data, fsdp) axes. Weak scaling on the batch axes: the
+    """This rank's block of the model's global batch of b_local·data·fsdp
+    rows ([rows, seq, d_model] inputs, or [rows, seq + 1] token ids), cut
+    over the (data, fsdp) axes. Weak scaling on the batch axes: the
     per-rank batch stays `cfg.b_local` whatever the mesh shape."""
     cfg = cfg or NetConfig()
     sizes = mesh_sizes(mesh)
-    if isinstance(cfg, MlaMoeConfig):
-        host = mla_moe.token_batch(
-            cfg, cfg.b_local * sizes["data"] * sizes["fsdp"], seed)
-        return local_shard(host, BATCH_SPEC[:2], mesh).to(mesh_device(mesh))
-    rng = np.random.default_rng(seed)
-    host = _cast(rng.standard_normal(
-        (cfg.b_local * sizes["data"] * sizes["fsdp"], cfg.s_local, cfg.d_model)),
-        torch_dtype(cfg))
+    host = model_of(cfg).host_batch(
+        cfg, cfg.b_local * sizes["data"] * sizes["fsdp"], seed)
     return local_shard(host, BATCH_SPEC, mesh).to(mesh_device(mesh))
 
 
-def _forward(p: dict, x: torch.Tensor, cfg: NetConfig | MlaMoeConfig,
-             tp=None) -> torch.Tensor:
-    """The dense stage on whole weights (w_in / w_out: this rank's tp blocks
-    when `tp`, the group they are cut over, is given), with the reference's
-    rounding points: rms squares in x's type; attention as
-    `ops/attention.py::attention_reference` has them (the logits product
-    in x's type, widened to f32 and only then divided by sqrt(dh), the
-    causal mask -1e30, softmax in f32, cast back); tanh gelu. An
-    `MlaMoeConfig`: the logits of token ids x (`mla_moe.forward`)."""
-    if isinstance(cfg, MlaMoeConfig):
-        return mla_moe.forward(p, x, cfg)
-    d, h = cfg.d_model, cfg.heads
-    dh = d // h
-    bsz, seq = x.shape[0], x.shape[1]
-
-    def heads4(t):
-        return t.reshape(bsz, seq, h, dh)
-
-    with span("block.attention"):
-        qkv = rms(x) @ p["wqkv"]
-        q, k, v = (heads4(t) for t in torch.split(qkv, d, dim=-1))
-        # f32 keeps the plain chain on every device; bf16 goes to the fused
-        # kernels on a card and to the same plain chain on the host
-        attend = (attention_reference if x.dtype == torch.float32
-                  else causal_attention)
-        hx = x + attend(q, k, v)
-    with span("block.ffn"):
-        f_in = rms(hx)
-        if tp is not None:
-            f_in = replicate(f_in, tp)
-        ff = F.gelu(f_in @ p["w_in"], approximate="tanh") @ p["w_out"]
-        if tp is not None:
-            ff = psum(ff, tp)
-        hx = hx + ff
-    return hx @ p["w_head"]
-
-
-def _loss_size(cfg: NetConfig | MlaMoeConfig, sizes: dict) -> float:
-    """What the step's loss is a mean over: every output entry of the dense
-    stage's global batch, or every predicted token."""
-    rows = cfg.b_local * sizes["data"] * sizes["fsdp"]
-    if isinstance(cfg, MlaMoeConfig):
-        return float(rows * cfg.s_local)
-    return float(rows * cfg.s_local * cfg.d_model)
-
-
-def _loss(p: dict, x: torch.Tensor, cfg: NetConfig | MlaMoeConfig,
-          denom: float, tp=None) -> torch.Tensor:
-    """This rank's share of the step's loss: sum(y²) / denom of the dense
-    stage's output, or the sum of the cross-entropy of each next id over
-    denom (`mla_moe.loss_sum`)."""
-    if isinstance(cfg, MlaMoeConfig):
-        return mla_moe.loss_sum(p, x, cfg) / denom
-    y = _forward(p, x, cfg, tp).float()
-    return torch.sum(y * y) / denom
-
-
 def analytic_step_flops(mesh: DeviceMesh | MeshSpec,
-                        cfg: NetConfig | MlaMoeConfig | None = None) -> float:
-    """Model FLOPs for one global step from the architecture alone
-    (matmuls at 2·m·n·k, full-matrix attention per the standard MFU
-    convention, backward as 2× forward; an `MlaMoeConfig`:
-    `mla_moe.step_flops`)."""
+                        cfg: ModelConfig | None = None) -> float:
+    """Model FLOPs for one global step from the architecture alone: the
+    model's `step_flops` over the global batch's tokens."""
     cfg = cfg or NetConfig()
     sizes = mesh_sizes(mesh)
-    b = cfg.b_local * sizes["data"] * sizes["fsdp"]
-    if isinstance(cfg, MlaMoeConfig):
-        return mla_moe.step_flops(cfg, b * cfg.s_local)
-    s, d, f = cfg.s_local, cfg.d_model, cfg.d_ff
-    fwd = (
-        6 * b * s * d * d          # qkv projection [d -> 3d]
-        + 4 * b * s * s * d        # attention: qk^T + av
-        + 2 * b * s * d * f        # FFN in
-        + 2 * b * s * f * d        # FFN out
-        + 2 * b * s * d * d        # readout head
-    )
-    return 3.0 * fwd
+    tokens = cfg.b_local * sizes["data"] * sizes["fsdp"] * cfg.s_local
+    return model_of(cfg).step_flops(cfg, tokens)
 
 
 def _flat_axes(spec) -> tuple[str, ...]:
@@ -402,26 +275,30 @@ def check_workload_mesh(mesh: DeviceMesh | MeshSpec, what: str) -> dict[str, int
     return sizes
 
 
-def check_attention_width(mesh: DeviceMesh,
-                          cfg: NetConfig | MlaMoeConfig) -> None:
-    """ValidationError for a bf16 config on a card whose head width the
-    fused attention is not built for (`ops/attention.py::MAX_DH`, or its
-    `PAIRS` of q·k and v widths for an `MlaMoeConfig`), when the step or
-    forward is built rather than at its first call."""
+def check_attention_width(mesh: DeviceMesh, cfg: ModelConfig) -> None:
+    """ValidationError for a bf16 config on a card whose head widths the
+    fused attention is not built for (the model's `attention_unbuilt`),
+    when the step or forward is built rather than at its first call."""
     if cfg.dtype != "bfloat16" or mesh.device_type != "cuda":
         return
-    if isinstance(cfg, MlaMoeConfig):
-        pair = (cfg.qk_head_dim, cfg.v_head_dim)
-        if pair not in PAIRS:
-            raise ValidationError(
-                f"a bfloat16 run on a card takes latent attention's head "
-                f"widths {PAIRS}, not {pair}")
-        return
-    dh = cfg.d_model // cfg.heads
-    if dh > MAX_DH:
-        raise ValidationError(
-            f"a bfloat16 run on a card takes head widths up to {MAX_DH} "
-            f"(d_model / heads), not {dh}")
+    why = model_of(cfg).attention_unbuilt(cfg)
+    if why:
+        raise ValidationError(f"a bfloat16 run on a card takes {why}")
+
+
+def resolve_mode(mode: str, specs) -> str:
+    """The compile mode that runs: ``auto`` is pjit when specs exist, else
+    shard_map; PartitionError for pjit without specs or another name."""
+    if mode == "auto":
+        return "pjit" if specs is not None else "shard_map"
+    if mode == "pjit" and specs is None:
+        raise PartitionError(
+            "compile mode 'pjit' needs explicit shardings — run the "
+            "partition rules first, or use mode 'shard_map'")
+    if mode not in ("pjit", "shard_map"):
+        raise PartitionError(
+            f"unknown compile mode {mode!r} (auto|pjit|shard_map)")
+    return mode
 
 
 # the Megatron pair: w_in's columns and w_out's rows cut on tp
@@ -464,7 +341,7 @@ def relayout(t: torch.Tensor, src, dst, mesh: DeviceMesh) -> torch.Tensor:
     return local_shard(gather_leaf(t, src, mesh), dst, mesh)
 
 
-def compile_step(mesh: DeviceMesh, cfg: NetConfig | MlaMoeConfig | None = None,
+def compile_step(mesh: DeviceMesh, cfg: ModelConfig | None = None,
                  specs=None, mode: str = "auto", lr: float | None = None):
     """THE compile seam: returns ``(step_fn, used)`` where
     ``step_fn(state, x) -> (loss, new_state)`` over the TrainState tree
@@ -475,7 +352,8 @@ def compile_step(mesh: DeviceMesh, cfg: NetConfig | MlaMoeConfig | None = None,
     (default: the configuration's, `adamw_lr`). Every rank of the mesh
     calls `step_fn` together."""
     cfg = cfg or NetConfig()
-    optimizer = make_optimizer(adamw_lr(cfg) if lr is None else lr)
+    model = model_of(cfg)
+    optimizer = make_optimizer(model.adamw_lr(cfg) if lr is None else lr)
     sizes = check_workload_mesh(mesh, "workload")
     check_attention_width(mesh, cfg)
     if specs is not None and (not isinstance(specs, dict)
@@ -485,26 +363,18 @@ def compile_step(mesh: DeviceMesh, cfg: NetConfig | MlaMoeConfig | None = None,
             "{'params', 'opt'} tree from "
             "match_partition_rules(rules, train_state_shapes()) — a "
             "params-only spec tree leaves the optimizer state unlaid-out")
-    if mode == "auto":
-        mode = "pjit" if specs is not None else "shard_map"
-    denom = _loss_size(cfg, sizes)
+    mode = resolve_mode(mode, specs)
+    denom = model.loss_count(cfg, cfg.b_local * sizes["data"] * sizes["fsdp"])
     if mode == "pjit":
-        if specs is None:
-            raise PartitionError(
-                "compile mode 'pjit' needs explicit shardings — run the "
-                "partition rules first, or use mode 'shard_map'")
         pspecs = specs["params"]
         moment_specs = specs["opt"][0]
         megatron = megatron_pair(pspecs)
-    elif mode != "shard_map":
-        raise PartitionError(
-            f"unknown compile mode {mode!r} (auto|pjit|shard_map)")
     else:
         pspecs, moment_specs, megatron = None, None, False
     groups = {a: mesh.get_group(a) for a in WORKLOAD_AXES}
     data_groups = [groups[a] for a in DATA_AXES if sizes[a] > 1]
-    fixed = frozen_leaves(cfg)
-    trainable = [k for k in param_shapes(cfg) if k not in fixed]
+    fixed = model.frozen(cfg)
+    trainable = [k for k in model.param_shapes(cfg) if k not in fixed]
 
     def sum_axes(name: str) -> list:
         """Data axes whose ranks' gradients of `name` are summed after
@@ -520,7 +390,8 @@ def compile_step(mesh: DeviceMesh, cfg: NetConfig | MlaMoeConfig | None = None,
         p.update({k: params[k] for k in fixed if k != "step"})
         whole = (gather_on_use(p, pspecs, groups, megatron)
                  if pspecs is not None else p)
-        loss = _loss(whole, x, cfg, denom, groups["tp"] if megatron else None)
+        loss = model.loss_sum(whole, x, cfg,
+                              groups["tp"] if megatron else None) / denom
         if pspecs is not None:
             for g in data_groups:
                 loss = psum(loss, g)
@@ -573,7 +444,7 @@ def compile_step(mesh: DeviceMesh, cfg: NetConfig | MlaMoeConfig | None = None,
     return step_fn, mode
 
 
-def make_train_step(mesh: DeviceMesh, cfg: NetConfig | MlaMoeConfig | None = None,
+def make_train_step(mesh: DeviceMesh, cfg: ModelConfig | None = None,
                     rules=None, mode: str = "auto", lr: float | None = None):
     """Rules → TrainState specs → step, in one call: returns
     ``(step_fn, specs_or_None, used_mode)``; `specs` is None exactly when
@@ -586,7 +457,5 @@ def make_train_step(mesh: DeviceMesh, cfg: NetConfig | MlaMoeConfig | None = Non
             rules if rules is not None else default_rules(cfg),
             train_state_shapes(cfg))
     step, used = compile_step(mesh, cfg, specs=specs, mode=mode, lr=lr)
-    if used == "shard_map":
-        specs = None
-    return step, specs, used
+    return step, None if used == "shard_map" else specs, used
 

@@ -1,13 +1,13 @@
 """The dense stage's fused causal attention (`ops/attention.py`, K3).
 
-On the host: the plain version is the chain `workloads/step.py::_forward`
+On the host: the plain version is the chain `workloads/dense.py::forward`
 ran before, bit for bit; a plain PyTorch walk of the kernels' tiles
-matches autograd of the plain version in f32; `_forward` sends f32 to the
-plain version by its own dtype test and bf16 to the wrapper, which takes
-the plain version for CPU tensors and refuses what the kernels do not
-take. On a card (marker ``cuda``, skipped elsewhere): the kernels against
-the plain version there at the cells' shapes, bit-identical gradients from
-run to run, and the launches a `_forward` makes. Imports no JAX:
+matches autograd of the plain version in f32; both models send every
+attention to the wrapper, which takes the plain version for f32 and for
+CPU tensors and refuses what the kernels do not take. On a card (marker
+``cuda``, skipped elsewhere): the kernels against the plain version there
+at the cells' shapes, bit-identical gradients from run to run, and the
+launches a dense forward makes. Imports no JAX:
 
     python -m pytest tests/test_torch_attention.py -m cuda --noconftest -q
 """
@@ -29,7 +29,8 @@ from kubeoperator_tpu_torch.ops.attention import (
 )
 from kubeoperator_tpu_torch.parallel.validation_net import NetConfig
 from kubeoperator_tpu_torch.utils.errors import ValidationError
-from kubeoperator_tpu_torch.workloads import step
+from kubeoperator_tpu_torch.workloads import dense, mla_moe, step
+from kubeoperator_tpu_torch.workloads.mla_moe import MlaMoeConfig
 
 
 def _qkv(bsz, seq, h, dh, dtype, seed=0, device="cpu"):
@@ -46,7 +47,8 @@ def _heads(qkv, h):
 
 
 def former_chain(qkv, h):
-    """`_forward`'s attention as the step wrote it before the kernel."""
+    """The dense forward's attention as the step wrote it before the
+    kernel."""
     bsz, seq, three_d = qkv.shape
     d = three_d // 3
     dh = d // h
@@ -310,26 +312,40 @@ def test_the_kernels_divide_by_sqrt_dh_as_a_true_division(dh):
 
 TINY = NetConfig(d_model=64, d_ff=128, heads=2, b_local=2, s_local=24,
                  dtype="bfloat16")
+TINY_MLA = MlaMoeConfig(
+    hidden=64, heads=4, q_lora_rank=32, kv_lora_rank=16, qk_nope_head_dim=16,
+    qk_rope_head_dim=8, v_head_dim=16, intermediate=96, moe_intermediate=24,
+    n_routed_experts=16, experts_per_token=4, experts_held=(0, 1, 2, 3),
+    vocab_held=64, n_dense_layers=1, n_moe_layers=1, b_local=2, s_local=16,
+    init_scale=0.1)
 
 
-@pytest.mark.parametrize("dtype,calls", [("bfloat16", 1), ("float32", 0)])
+@pytest.mark.parametrize("model,cfg", [(dense, TINY), (mla_moe, TINY_MLA)],
+                         ids=["dense", "mla_moe"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_forward_sends_bf16_to_the_wrapper_and_f32_to_the_plain_version(
-        monkeypatch, dtype, calls):
-    cfg = dataclasses.replace(TINY, dtype=dtype)
-    params = step.build_host_params(cfg)
-    x = torch.randn((2, 24, 64), generator=torch.Generator().manual_seed(3))
-    x = x.to(step.torch_dtype(cfg))
-    want = step._forward(params, x, cfg)
+        monkeypatch, model, cfg, dtype):
+    """Every attention of either model's forward reaches the wrapper, in
+    the model's type; an f32 one comes back as the plain version's output,
+    bit for bit, and the host launches nothing."""
+    cfg = dataclasses.replace(cfg, dtype=dtype)
+    params = model.init_params(cfg, 3, "cpu")
+    batch = model.host_batch(cfg, cfg.b_local, 4)
+    want = model.loss_sum(params, batch, cfg)
     seen = []
 
-    def wrapper(q, k, v):
+    def wrapper(q, k, v, scale=None):
+        out = causal_attention(q, k, v, scale)
+        if q.dtype == torch.float32:
+            assert torch.equal(out, attention_reference(q, k, v, scale))
         seen.append(q.dtype)
-        return causal_attention(q, k, v)
+        return out
 
-    monkeypatch.setattr(step, "causal_attention", wrapper)
+    monkeypatch.setattr(model, "causal_attention", wrapper)
     launches = causal_attention.launches
-    got = step._forward(params, x, cfg)
-    assert len(seen) == calls
+    got = model.loss_sum(params, batch, cfg)
+    layers = getattr(cfg, "n_layers", 1)
+    assert seen == [getattr(torch, dtype)] * layers
     assert torch.equal(got, want)
     assert causal_attention.launches == launches   # the host launches nothing
 
@@ -338,25 +354,31 @@ def test_forward_on_the_host_is_the_former_chain_bit_for_bit():
     params = step.build_host_params(TINY)
     x = torch.randn((2, 24, 64), generator=torch.Generator().manual_seed(4))
     x = x.to(torch.bfloat16)
-    got = step._forward(params, x, TINY)
-    qkv = step.rms(x) @ params["wqkv"]
+    got = dense.forward(params, x, TINY)
+    qkv = dense.rms(x) @ params["wqkv"]
     hx = x + former_chain(qkv, TINY.heads)
-    ff = torch.nn.functional.gelu(step.rms(hx) @ params["w_in"],
+    ff = torch.nn.functional.gelu(dense.rms(hx) @ params["w_in"],
                                   approximate="tanh") @ params["w_out"]
     assert torch.equal(got, (hx + ff) @ params["w_head"])
 
 
 @pytest.mark.parametrize("dtype,dh,error", [
     (torch.float16, 64, "bfloat16"),
-    (torch.float32, 64, "bfloat16"),
+    (torch.float32, 64, None),              # f32 takes the plain version
     (torch.bfloat16, 520, "head width"),
     (torch.bfloat16, 1024, "head width"),
     (torch.bfloat16, 64, "unsupported device"),
 ])
 def test_wrapper_refuses_what_the_kernels_do_not_take(dtype, dh, error):
     q = torch.empty((1, 8, 2, dh), dtype=dtype, device="meta")
-    with pytest.raises(ValueError, match=error):
-        causal_attention(q, q, q)
+    launches = causal_attention.launches
+    if error is None:
+        out = causal_attention(q, q, q)
+        assert out.shape == (1, 8, 2 * dh) and out.dtype == dtype
+    else:
+        with pytest.raises(ValueError, match=error):
+            causal_attention(q, q, q)
+    assert causal_attention.launches == launches
 
 
 @pytest.mark.parametrize("dqk,dv,scale,error", [
@@ -602,15 +624,20 @@ def test_backward_is_bit_identical_run_to_run(dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,dh", [(torch.float16, 512),
-                                      (torch.float32, 512),
-                                      (torch.bfloat16, 520),
-                                      (torch.bfloat16, 1024)])
-def test_wrapper_raises_on_the_card_for_what_it_does_not_take(dev, dtype, dh):
-    q = torch.zeros((1, 64, 2, dh), dtype=dtype, device=dev)
+@pytest.mark.parametrize("dtype,dh,refused", [(torch.float16, 512, True),
+                                              (torch.float32, 512, False),
+                                              (torch.bfloat16, 520, True),
+                                              (torch.bfloat16, 1024, True)])
+def test_wrapper_raises_on_the_card_for_what_it_does_not_take(dev, dtype, dh,
+                                                              refused):
+    q = torch.randn((1, 64, 2, dh), device=dev).to(dtype)
     launches = causal_attention.launches
-    with pytest.raises(ValueError):
-        causal_attention(q, q, q)
+    if refused:
+        with pytest.raises(ValueError):
+            causal_attention(q, q, q)
+    else:                                   # f32 takes the plain version
+        assert torch.equal(causal_attention(q, q, q),
+                           attention_reference(q, q, q))
     assert causal_attention.launches == launches
 
 
@@ -625,17 +652,17 @@ def test_forward_launches_the_kernels_once_forward_and_back(dev):
     bwd = attention.LAUNCHES_BACKWARD[(512, 512)]
     before = causal_attention.launches
     fused = causal_attention.fused_backward_launches
-    y = step._forward(params, x, cfg)
+    y = dense.forward(params, x, cfg)
     assert causal_attention.launches == before + fwd
     y.float().square().sum().backward()
     torch.cuda.synchronize()
     assert causal_attention.launches == before + fwd + bwd
     assert causal_attention.fused_backward_launches == fused
     with torch.no_grad():
-        step._forward(params, x, cfg)
+        dense.forward(params, x, cfg)
     assert causal_attention.launches == before + 2 * fwd + bwd
     f32 = dataclasses.replace(cfg, dtype="float32")
-    step._forward({k: t.detach().float() for k, t in params.items()},
+    dense.forward({k: t.detach().float() for k, t in params.items()},
                   x.float(), f32)
     assert causal_attention.launches == before + 2 * fwd + bwd
     # the pair: three launches back, one of them the fused dK·dV walk

@@ -10,19 +10,20 @@ counter to the selection. Imports no JAX.
 """
 
 import dataclasses
+import inspect
 import math
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 
-from kubeoperator_tpu_torch.ops.attention import PAIRS
 from kubeoperator_tpu_torch.parallel.mesh import MeshSpec
 from kubeoperator_tpu_torch.parallel.multislice import initialize_from_env
 from kubeoperator_tpu_torch.parallel.validation_net import NetConfig
 from kubeoperator_tpu_torch.utils import spans
 from kubeoperator_tpu_torch.utils.errors import ValidationError
-from kubeoperator_tpu_torch.workloads import harness, mla_moe, serve, step
+from kubeoperator_tpu_torch.workloads import dense, harness, mla_moe, serve, step
 from kubeoperator_tpu_torch.workloads import mla_moe_reference as ref
 from kubeoperator_tpu_torch.workloads.mla_moe import MlaMoeConfig
 from kubeoperator_tpu_torch.workloads.partition import match_partition_rules
@@ -53,7 +54,7 @@ def _params(cfg=SMALL, seed=SEED):
 
 
 def _batch(cfg=SMALL, seed=SEED + 1):
-    return mla_moe.token_batch(cfg, cfg.b_local, seed)
+    return mla_moe.host_batch(cfg, cfg.b_local, seed)
 
 
 def _rel(a, b) -> float:
@@ -227,10 +228,14 @@ def test_the_configured_lr_moves_the_weights_by_that_lr():
 
 def test_the_dense_stage_keeps_its_default_lr():
     assert step.adamw_lr(NetConfig()) == step.ADAMW_LR == 1e-2
-    assert step.adamw_lr(SMALL) == SMALL.lr
+    assert step.adamw_lr(SMALL) == SMALL.lr == mla_moe.adamw_lr(SMALL)
+    assert dense.adamw_lr(NetConfig()) == step.make_optimizer().lr
+    assert step.frozen_leaves(NetConfig()) == dense.frozen(NetConfig())
+    assert step.frozen_leaves(SMALL) == mla_moe.frozen(SMALL)
 
 
 def test_the_rules_cover_every_leaf_and_replicate_router_norms_and_biases():
+    assert step.default_rules(SMALL) == mla_moe.default_rules()
     specs = match_partition_rules(step.default_rules(SMALL),
                                   step.train_state_shapes(SMALL))
     params = specs["params"]
@@ -247,15 +252,48 @@ def test_the_rules_cover_every_leaf_and_replicate_router_norms_and_biases():
 
 def test_the_step_build_refuses_latent_widths_the_kernels_lack():
     cuda = type("Mesh", (), {"device_type": "cuda"})()
-    step.check_attention_width(cuda, dataclasses.replace(SMALL, dtype="bfloat16",
-                                                         qk_nope_head_dim=128,
-                                                         qk_rope_head_dim=64,
-                                                         v_head_dim=128))
-    assert (192, 128) in PAIRS
+    published = dataclasses.replace(SMALL, dtype="bfloat16",
+                                    qk_nope_head_dim=128,
+                                    qk_rope_head_dim=64, v_head_dim=128)
+    step.check_attention_width(cuda, published)
+    assert mla_moe.attention_unbuilt(published) is None
+    assert "latent attention" in mla_moe.attention_unbuilt(SMALL)
     with pytest.raises(ValidationError, match="latent attention"):
         step.check_attention_width(cuda, dataclasses.replace(SMALL,
                                                              dtype="bfloat16"))
     step.check_attention_width(cuda, SMALL)            # f32: the plain chain
+
+
+# the seam every model module exports: each function's parameters
+SEAM = {
+    "param_shapes": ("cfg",),
+    "init_params": ("cfg", "seed", "device"),
+    "host_batch": ("cfg", "rows", "seed"),
+    "forward": ("p", "x", "cfg", "tp"),
+    "loss_sum": ("p", "batch", "cfg", "tp"),
+    "loss_count": ("cfg", "rows"),
+    "step_flops": ("cfg", "tokens"),
+    "default_rules": (),
+    "frozen": ("cfg",),
+    "adamw_lr": ("cfg",),
+    "attention_unbuilt": ("cfg",),
+}
+
+
+@pytest.mark.parametrize("kind", [*step.MODELS, None],
+                         ids=lambda k: k.__name__ if k else "unknown")
+def test_every_model_of_the_table_exports_the_seam(kind):
+    if kind is None:
+        with pytest.raises(ValidationError, match="no model for a"):
+            step.model_of(SimpleNamespace(dtype="float32"))
+        return
+    model = step.model_of(kind())
+    assert model is step.MODELS[kind]
+    for name, params in SEAM.items():
+        sig = inspect.signature(getattr(model, name))
+        assert tuple(sig.parameters) == params, (model.__name__, name)
+        if "tp" in params:
+            assert sig.parameters["tp"].default is None
 
 
 def test_the_serve_forward_returns_the_logits():
