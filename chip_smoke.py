@@ -7,8 +7,9 @@ Run from the root of a checkout, on a machine with a CUDA card and nvcc.
 `--parent DIR` also times the kernels of another checkout (unpacked with
 `git archive`, say the parent commit) in a subprocess on the same card,
 before phase 4 and after phase 8, and prints its times beside the tree's
-(`parent_ms`: the first --parent's). It may be given more than once,
-and does not change what is checked.
+(`parent_ms`: the first --parent's); phase 20 reports whether K3's forward
+at (192, 128) gives that checkout's o and lse bit for bit. It may be given
+more than once, and does not change what is checked.
 It builds the port's kernels from `kubeoperator_tpu_torch/csrc/`, holds
 each against its plain PyTorch version on the card, drives the port's
 node-validation path (`koctl tpu diag` at its defaults, then the Ready
@@ -117,11 +118,13 @@ Phases; any failure ends the run with a non-zero exit and no result line:
  20. K3 at latent attention's widths (q and k 192, v 128 a view of the kv
      product, the scores times the softmax scale): against its plain
      version at `LATENT_SHAPES` (the reference a block of heads at a time),
-     two backward runs bit-identical and each a launch of the fused dK·dV
-     walk, then its forward and backward times at the Kimi-K2 cell's shape
-     beside their bounds (forward q·kᵀ at 192 and P·v at 128, backward two
-     of each width), each backward launch's time by kind, and the pair's
-     and `delta_kernel<128>`'s registers, spills and shared memory
+     two runs bit-identical, each a launch of the pipelined forward walk
+     and of the fused dK·dV walk; with --parent, o and lse against the
+     other checkout's forward on the same inputs, bit for bit; then its
+     forward and backward times at the Kimi-K2 cell's shape beside their
+     bounds (forward q·kᵀ at 192 and P·v at 128, backward two of each
+     width), each launch's time by kind (forward, D, dK·dV, dQ), and the
+     pair's and `delta_kernel<128>`'s registers, spills and shared memory
 Phase 10 also runs, over its 2 processes, the bench twin's >= 2-rank
 branch (rank 0's line), Ulysses across the two cards, and then
 `dryrun_multichip(2, device="cuda")`; with 4 or more cards,
@@ -1227,10 +1230,82 @@ def attention_phase(smi: str) -> dict:
     return dict(shapes=shapes, nvidia_smi=smi)
 
 
-def latent_attention_phase(smi: str) -> dict:
+def latent_inputs(b: int, s: int, h: int, dev):
+    """Phase 20's inputs at [b, s, h]: q, k [b, s, h, 192] and kv [b, s, h,
+    256] (v its last 128 columns) needing gradients, dO [b, s, h, 128];
+    bf16, drawn on the card from seed s."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(s)
+    q, k = (torch.randn((b, s, h, 192), device=dev, generator=gen)
+            .bfloat16().requires_grad_() for _ in range(2))
+    kv = torch.randn((b, s, h, 256), device=dev, generator=gen).bfloat16()
+    kv.requires_grad_()
+    do = torch.randn((b, s, h, 128), device=dev, generator=gen).bfloat16()
+    return q, k, kv, do
+
+
+# run in a subprocess by phase 20 with --parent: another checkout's forward
+# at (192, 128) on phase 20's inputs, o and lse saved for the comparison
+_PARENT_FORWARD_SCRIPT = """
+import importlib.util, sys
+import torch
+sys.path.insert(0, {parent!r})
+spec = importlib.util.spec_from_file_location("smoke_now", {smoke!r})
+now = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(now)
+from kubeoperator_tpu_torch.ops import _build, attention as k3
+assert str(_build.CSRC).startswith({parent!r}), _build.CSRC
+dev = torch.device("cuda", 0)
+for i, (b, s, h) in enumerate({shapes!r}):
+    q, k, kv, _ = now.latent_inputs(b, s, h, dev)
+    o, lse = k3._launch_forward(q.detach(), k.detach(), kv.detach()[..., 128:],
+                                192, now.LATENT_SCALE)
+    torch.save(dict(o=o.cpu(), lse=lse.cpu()), f"{out}/{{i}}.pt")
+    del q, k, kv, o, lse
+"""
+
+
+def forward_bits_against(parent_dir: str, shapes) -> dict:
+    """Whether this tree's forward at (192, 128) gives the o and lse of the
+    checkout at `parent_dir`, bit for bit, on phase 20's inputs at each
+    [b, s, h] of `shapes` (that checkout's run in a subprocess on the same
+    card)."""
+    import torch
+
+    from kubeoperator_tpu_torch.ops import attention as k3
+
+    dev = torch.device("cuda", 0)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as out:
+        script = _PARENT_FORWARD_SCRIPT.format(
+            parent=str(Path(parent_dir).resolve()),
+            smoke=str(ROOT / "chip_smoke.py"), shapes=list(shapes), out=out)
+        proc = subprocess.run([sys.executable, "-c", script], cwd=parent_dir,
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            fail(f"--parent forward exit {proc.returncode}: "
+                 f"{proc.stderr[-2000:]}")
+        equal = {}
+        for i, (b, s, h) in enumerate(shapes):
+            q, k, kv, _ = latent_inputs(b, s, h, dev)
+            o, lse = k3._launch_forward(q.detach(), k.detach(),
+                                        kv.detach()[..., 128:], 192,
+                                        LATENT_SCALE)
+            want = torch.load(f"{out}/{i}.pt")
+            equal[f"{b}x{s}x{h}"] = dict(
+                o=bool(torch.equal(o.cpu(), want["o"])),
+                lse=bool(torch.equal(lse.cpu(), want["lse"])))
+            del q, k, kv, o, lse, want
+            torch.cuda.empty_cache()
+    return equal
+
+
+def latent_attention_phase(smi: str, parents=()) -> dict:
     """Phase 20: K3 at (192, 128) against its plain version on the card,
-    bit-identical backward, its times at the Kimi-K2 cell's shape (module
-    docstring). Alone: ``python3 -c "import chip_smoke;
+    bit-identical runs, with `parents` (checkout directories) the forward's
+    o and lse against each one's, its times at the Kimi-K2 cell's shape
+    (module docstring). Alone: ``python3 -c "import chip_smoke;
     chip_smoke.latent_attention_phase('')"``."""
     import torch
 
@@ -1238,25 +1313,22 @@ def latent_attention_phase(smi: str) -> dict:
 
     dev = torch.device("cuda", 0)
     shapes = {}
+    counters = ("pipelined_forward_launches", "fused_backward_launches")
     for b, s, h in LATENT_SHAPES:
-        gen = torch.Generator(device=dev).manual_seed(s)
-        q, k = (torch.randn((b, s, h, 192), device=dev, generator=gen)
-                .bfloat16().requires_grad_() for _ in range(2))
-        kv = torch.randn((b, s, h, 256), device=dev, generator=gen).bfloat16()
-        kv.requires_grad_()
-        do = torch.randn((b, s, h, 128), device=dev, generator=gen).bfloat16()
+        q, k, kv, do = latent_inputs(b, s, h, dev)
 
         def run():
             out = k3.causal_attention(q, k, kv[..., 128:], LATENT_SCALE)
             dq, dk, dkv = torch.autograd.grad(out, (q, k, kv), do.reshape(out.shape))
             return [out.detach().view(b, s, h, 128), dq, dk, dkv[..., 128:]]
 
-        fused = k3.causal_attention.fused_backward_launches
+        before = [getattr(k3.causal_attention, c) for c in counters]
         got, again = run(), run()
-        fused = k3.causal_attention.fused_backward_launches - fused
-        if fused != 2:
-            fail(f"K3 at {(b, s, h, 192, 128)}: 2 backward calls launched "
-                 f"the fused dK·dV walk {fused} times")
+        walks = {c: getattr(k3.causal_attention, c) - n
+                 for c, n in zip(counters, before)}
+        if any(n != 2 for n in walks.values()):
+            fail(f"K3 at {(b, s, h, 192, 128)}: 2 calls launched the "
+                 f"pipelined walks {walks} times")
         errs = {name: dict(num=0.0, den=0.0, max_num=0.0, max_den=0.0)
                 for name in ("o", "dq", "dk", "dv")}
         for h0 in range(0, h, 16):          # the plain chain, 16 heads a time
@@ -1286,7 +1358,7 @@ def latent_attention_phase(smi: str) -> dict:
                 fail(f"K3 at {(b, s, h, 192, 128)}: {name} {errs[name]}")
         del got, again
         torch.cuda.empty_cache()
-        rec = dict(errors=errs, backward_calls=2, fused_backward_launches=fused)
+        rec = dict(errors=errs, calls=2, **walks)
         if (b, s) != LATENT_SHAPES[0][:2]:
             qd, kd, vd = q.detach(), k.detach(), kv.detach()[..., 128:]
             o, lse = k3._launch_forward(qd, kd, vd, 192, LATENT_SCALE)
@@ -1296,7 +1368,7 @@ def latent_attention_phase(smi: str) -> dict:
                     qd, kd, vd, 192, LATENT_SCALE), 5, 3),
                 bwd_ms=event_ms(lambda: k3._launch_backward(
                     qd, kd, vd, o, lse, do, 192, LATENT_SCALE), 5, 1),
-                bwd_kinds_ms=backward_kinds_ms(k3, qd, kd, vd, o, lse, do),
+                kinds_ms=kinds_ms(k3, qd, kd, vd, o, lse, do),
                 fwd_bound_ms=unit * (192 + 128) / 989e12 * 1e3,
                 bwd_bound_ms=2 * unit * (192 + 128) / 989e12 * 1e3,
                 resources={n: r for n, r in k3.kernel_resources().items()
@@ -1307,17 +1379,26 @@ def latent_attention_phase(smi: str) -> dict:
               f"{json.dumps(rec)}", flush=True)
         del q, k, kv, do
         torch.cuda.empty_cache()
-    return dict(shapes=shapes, nvidia_smi=smi)
+    against = {}
+    for d in parents:
+        against[d] = forward_bits_against(d, LATENT_SHAPES)
+        print(f"phase 20: forward o and lse bit-equal to --parent {d}'s: "
+              f"{json.dumps(against[d])}", flush=True)
+    return dict(shapes=shapes, forward_bits_against=against, nvidia_smi=smi)
 
 
-def backward_kinds_ms(k3, q, k, v, o, lse, do) -> dict:
-    """Each launch of K3's backward at (192, 128) alone, by kind (ms), in
-    the order `BACKWARD` lists them."""
+def kinds_ms(k3, q, k, v, o, lse, do) -> dict:
+    """Each launch of K3 at (192, 128) alone, by kind (ms): the forward,
+    then the backward's in the order `BACKWARD` lists them."""
     import torch
 
     b, s, h, _ = q.shape
     lib = k3._library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    lse_out = torch.empty_like(lse)
+    ms = {"fwd": event_ms(lambda: k3._launch(
+        "fwd", q, k, v, torch.empty_like(o), 192, LATENT_SCALE,
+        lse_out=lse_out), 5, 3)}
     delta = torch.empty_like(lse)
 
     def d():
@@ -1325,7 +1406,7 @@ def backward_kinds_ms(k3, q, k, v, o, lse, do) -> dict:
                                       delta.data_ptr(), b, h, s, stream),
                "delta")
 
-    ms = {"delta": event_ms(d, 5, 3)}
+    ms["delta"] = event_ms(d, 5, 3)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(o)
     outs = {"dkv": (dk, dv), "dq": (dq, None)}
     for kind in k3.BACKWARD[(192, 128)][1:]:
@@ -1738,7 +1819,7 @@ def main(argv: list[str] | None = None) -> int:
 
     # 20. K3 at latent attention's widths
     torch.cuda.empty_cache()
-    latent = latent_attention_phase(smi)
+    latent = latent_attention_phase(smi, args.parent)
     n8 = ring_times["times"][8]
     forms = ["one card, virtual ranks"] + (["process per card"] if multi else [])
     kernels = {"kernels": [{

@@ -20,17 +20,18 @@
 // dS = bf16(P∘(dO·vᵀ - D) / sqrt(dh)), dq = dS·k, dk = dSᵀ·q, dv = bf16(P)ᵀ·dO.
 // Widths: DQK = DV = dh in 64, 128, 256, 512 (the dense stage); and DQK 192,
 // DV 128 (latent attention: 128 columns without position and 64 rotated),
-// where the instantiation's SCALE replaces the division by a product with a
-// given softmax scale, S = bf16(q·kᵀ)·scale and dS = bf16(P∘(dO·vᵀ - D)·scale),
-// each one f32 multiply as the chain's.
+// where a product with a given softmax scale replaces the division,
+// S = bf16(q·kᵀ)·scale and dS = bf16(P∘(dO·vᵀ - D)·scale), each one f32
+// multiply as the chain's.
 //
-// Launches. Forward: one (kind kFwd), writing o and lse. Backward, with no
-// atomics, so the gradients are the same bits from run to run: at equal
-// widths four: D (delta_kernel), then dV and dK (kinds kDv and kDk: one
-// block per 64-row K tile, walking the Q tiles from the diagonal down) and
-// dQ (kind kDq: one block per 64-row Q tile, walking the K tiles up to the
-// diagonal); at the pair three: D, then dK and dV in one walk (kind kDkv)
-// and dQ (kind kDq), both on the pipeline below.
+// Launches. Forward: one (kind kFwd), writing o and lse: at equal widths
+// the lock-step kernel below, at the pair a walk on the pipeline below.
+// Backward, with no atomics, so the gradients are the same bits from run to
+// run: at equal widths four: D (delta_kernel), then dV and dK (kinds kDv
+// and kDk: one block per 64-row K tile, walking the Q tiles from the
+// diagonal down) and dQ (kind kDq: one block per 64-row Q tile, walking the
+// K tiles up to the diagonal); at the pair three: D, then dK and dV in one
+// walk (kind kDkv) and dQ (kind kDq), both on the pipeline.
 //
 // What bounds it on the H100. Forward is two b·h·s²·dh products over the
 // causal half, backward eight at equal widths (S recomputed in each of dV,
@@ -42,7 +43,8 @@
 // 8.4 MFLOP in kFwd and kDv, and the block works in lock step (products,
 // then the softmax while the tensor cores idle, then products).
 //
-// Design. Every kind is one shape: a block holds a 64-row tile (A1, and A2
+// Design at equal widths (the lock-step kernels; the pair's are further
+// down). Every kind is one shape: a block holds a 64-row tile (A1, and A2
 // where there are two score products) in shared memory and an f32
 // accumulator [64, DH] in registers, and streams tiles (B1, B2) of kBn rows
 // through shared memory with cp.async. Per streamed tile it forms scores
@@ -73,24 +75,28 @@
 // K/V tiles wholly above the diagonal are never loaded; only the tiles the
 // diagonal crosses are masked (exact: exp(-1e30 - max) is 0 in f32).
 //
-// The pair's backward (kinds kDkv and kDq at (192, 128), `attention_kernel_
-// pipelined`): warp-specialised walks fed by TMA. A block is three
+// The pair's kernels (kinds kFwd, kDkv and kDq at (192, 128), `attention_
+// kernel_pipelined`): warp-specialised walks fed by TMA. A block is three
 // warpgroups. The producer (setmaxnreg 24) loads the held tiles once and
-// keeps the streamed tiles coming through a ring of 3 stages: one warp,
-// one lane starting cp.async.bulk.tensor copies of 64-column boxes (4-d
+// keeps the streamed tiles coming through a ring of 3 stages (kFwd 4): one
+// warp, one lane starting cp.async.bulk.tensor copies of 64-column boxes (4-d
 // maps over [b, s, h, width] with the tensors' own strides, 128-byte
 // swizzled: the layout above; rows past s read as zeros), its 32 lanes
 // writing the streamed Q rows' lse and D beside them (kDkv), each stage
 // with a full and an empty mbarrier. Two consumer warpgroups (setmaxnreg
 // 240) each own 64 rows of a 128-row held tile and walk the same stages:
-// wgmma for the score products (both operands in shared memory), the
-// elementwise chain, wgmma for the accumulation (bf16 fragments from
-// registers), release. The two meet only at the ring, so one's elementwise
-// work runs while the other's products hold the tensor cores (named-barrier
-// turns, tried, took 6 ms more a layer at the Kimi-K2 cell's shape). A
+// wgmma for the score products (both operands in shared memory; kFwd's
+// below), the elementwise chain, wgmma for the accumulation (bf16
+// fragments from registers), release. In the backward the two meet only at
+// the ring, so one's elementwise work runs while the other's products hold
+// the tensor cores (named-barrier turns, tried there, took 6 ms more a
+// layer at the Kimi-K2 cell's shape; the forward's are below). A
 // warpgroup skips the streamed tiles wholly above the diagonal for its own
 // rows. Blocks of one (b, h) run together, so its streamed tiles are read
-// from L2.
+// from L2; kFwd and kDq start with the longest walks (the last Q tiles).
+//   kFwd: held A1 = q; streamed B1 = k, B2 = v (64 rows)
+//         S = A1·B1ᵀ, the lock-step kFwd's softmax step; o += bf16(P)·B2;
+//         o / l and lse = m + log(l) written once at the end
 //   kDkv: held A1 = k, A2 = v; streamed B1 = q, B2 = dO (48 rows)
 //         Sᵀ = A1·B1ᵀ, dPᵀ = A2·B2ᵀ; P = exp(Sᵀ·scale - lse), dS as above;
 //         dv += bf16(P)ᵀ·B2, dk += dSᵀ·B1; written once at the end
@@ -109,6 +115,32 @@
 // and 207,416 B (kDq: 80 KB, 3 × 40 KB); one block an SM. Each
 // accumulator sums its 16-row k-steps in the order the four-launch form
 // does, and the gradients came out as its bits at every shape tried.
+//
+// The pair's forward (kFwd) goes further than the backward's walks. A
+// consumer reads its 64 Q rows once from the held tile into registers, as
+// the A fragments of the score product (192 columns: 48 registers), so
+// wgmma reads only K from shared memory; and it runs one tile ahead: tile
+// j's q·kᵀ and tile j - 1's P·v are started together, tile j's softmax runs
+// while P·v holds the tensor cores, and a stage is released once its P·v
+// is done. The two consumers start their products in turns (named
+// barriers 1 and 2, consumer 0 first, only over the starts both make), so
+// one's softmax runs under the other's products; the rescale of o is
+// skipped where alpha is exactly 1 (a product by 1 is exact). Registers of
+// a consumer thread: o [64, 128] f32 64, S [64, 64] 32, P's bf16 fragments
+// 16, Q's 48: 160 of 240. ptxas (nvcc 12.9): 168 registers at launch, 0
+// spilled bytes; shared memory 214,088 B (48 KB held, 4 × 40 KB
+// streamed); one block an SM. The lock-step forward's rounding points, and its k-step order at its 64-row
+// streamed tiles, so o and lse are its bits (at every shape tried on the
+// card). At 3×8192 tokens and 64 heads, on an H100 SXM at 700 W, it took
+// 8.72 ms against the lock-step form's 14.94 (4.17 ms at 989 TFLOP/s).
+// Tried there: the lock-step order on the ring 9.19-9.36 ms, one tile
+// ahead alone 9.44, Q read from shared memory 9.49, no turns 8.85, o always
+// rescaled 8.80; one tile ahead with Q in shared memory at 3 stages 9.60
+// and at 2 stages 10.73 (4: 9.47).
+// The dense widths keep the lock-step forward: at dh 512 its [64, 512] f32
+// accumulator is half the register file, split over two warpgroups that
+// trade partial scores, so two consumers that each own 64 rows cannot hold
+// it.
 //
 // Rounding points: the chain's, except one a one-pass kernel cannot keep:
 // the chain normalises P before its cast to bf16, the kernel divides the f32
@@ -742,23 +774,26 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// ---- the pair's backward: warp-specialised walks fed by TMA --------------
+// ---- the pair's kernels: warp-specialised walks fed by TMA ---------------
 
-// Tiles of kinds kDkv and kDq (see the header): a held tile of 128 rows, 64
-// for each consumer warpgroup; streamed tiles of kBn rows (48 where dK and
-// dV both sit in registers) in a ring of kStages, each with its lse and D
-// rows (kDkv).
+// Tiles of kinds kFwd, kDkv and kDq at the pair (see the header): a held
+// tile of 128 rows, 64 for each consumer warpgroup (A1 alone for kFwd);
+// streamed tiles of kBn rows (48 where dK and dV both sit in registers) in
+// a ring of kStages, each with its lse and D rows (kDkv; kDq keeps the
+// room).
 template <int KIND, int DQK, int DV>
 struct Pipe {
+  static constexpr bool kFwdWalk = KIND == kFwd;
   static constexpr int kHeldRows = 128;
   static constexpr int kBn = KIND == kDkv ? 48 : 64;
-  static constexpr int kStages = 3;
+  static constexpr int kStages = kFwdWalk ? 4 : 3;
   static constexpr int kThreads = 384;   // producer, two consumers
-  static constexpr int kA1 = kHeldRows * DQK * 2, kA2 = kHeldRows * DV * 2;
+  static constexpr int kA1 = kHeldRows * DQK * 2;
+  static constexpr int kA2 = kFwdWalk ? 0 : kHeldRows * DV * 2;
   static constexpr int kB1 = kBn * DQK * 2, kB2 = kBn * DV * 2;
   static constexpr int kStage = kB1 + kB2;
   static constexpr int kTiles = kA1 + kA2 + kStages * kStage;
-  static constexpr int kStats = 2 * kBn * 4;
+  static constexpr int kStats = kFwdWalk ? 0 : 2 * kBn * 4;
   // barriers: the held tiles', then full and empty of each stage
   static constexpr int kBars = 8 * (1 + 2 * kStages);
   // + 1 KB to align the tiles to the swizzle's 1024-byte period
@@ -769,16 +804,17 @@ struct Pipe {
   static_assert(DQK % 64 == 0 && DV % 64 == 0, "tiles are blocks of 64 columns");
 };
 
-// What the pair's backward kernels read: the four tiles' TMA maps (held A1,
-// A2; streamed B1, B2), the outputs and the row statistics.
+// What the pair's pipelined kernels read: the tiles' TMA maps (held A1, A2
+// (not kFwd); streamed B1, B2), the outputs and the row statistics.
 struct TmaArgs {
   CUtensorMap held1, held2, stream1, stream2;
-  __nv_bfloat16* out1;   // dk (kDkv) or dq: [b, s, h, DQK] contiguous
+  __nv_bfloat16* out1;   // dk (kDkv) or dq: [b, s, h, DQK]; o (kFwd): [b, s, h, DV]; contiguous
   __nv_bfloat16* out2;   // dv (kDkv): [b, s, h, DV] contiguous
-  const float* lse;      // [b, h, s]
-  const float* delta;    // [b, h, s]
+  const float* lse;      // [b, h, s] (backward)
+  const float* delta;    // [b, h, s] (backward)
   int bh, heads, seq;
   float scale;
+  float* lse_out;        // [b, h, s] (kFwd)
 };
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
@@ -888,6 +924,250 @@ __device__ __forceinline__ void store_rows(float acc[KC / 8][4],
   }
 }
 
+// waits until at most N committed groups of this warpgroup's wgmma are
+// still running
+template <int N>
+__device__ __forceinline__ void wg_wait_for() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// registers that an asynchronous wgmma reads or writes, pinned at this
+// point: no use or new value of them is moved across it
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(r[i][e])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void pin(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
+}
+
+// The forward's softmax step on this warp's 16 rows of a BN-column score
+// tile from column s0: S scaled and masked (where the diagonal crosses the
+// tile), the rows' running max m and sum l moved on, s turned into
+// p = exp(S - m) in place; alpha = exp(m before - m after) rescales what
+// the rows summed before. The lock-step kFwd's arithmetic, step for step.
+template <int BN>
+__device__ __forceinline__ void online_softmax(float (&s)[BN / 8][4],
+                                               float m_i[2], float l_i[2],
+                                               float alpha[2], int s0,
+                                               const int row[2], bool diag,
+                                               float scale, int t) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int jn = 0; jn < BN / 8; ++jn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = __fmul_rn(bf16_round(s[jn][e]), scale);
+      if (diag && s0 + jn * 8 + 2 * t + (e & 1) > row[e >> 1]) x = kMask;
+      s[jn][e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    mx[i] = fmaxf(m_i[i], mx[i]);
+    alpha[i] = fexp(m_i[i] - mx[i]);
+    m_i[i] = mx[i];
+  }
+#pragma unroll
+  for (int jn = 0; jn < BN / 8; ++jn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[jn][e] = fexp(s[jn][e] - mx[e >> 1]);
+      sum[e >> 1] += s[jn][e];
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+    sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+    l_i[i] = l_i[i] * alpha[i] + sum[i];
+  }
+}
+
+// d (64 x 64, f32) = (scale ? d : 0) + A·Bᵀ, A in registers (bf16
+// fragments), B K-major in shared memory
+__device__ __forceinline__ void wgmma_rs_kn64(float* d, const uint32_t* a,
+                                             uint64_t b, int scale) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale));
+}
+
+// this warp's 16 rows of a 64-row slice `a` of the held tile (128-byte
+// swizzled blocks of 64 columns, ABLOCK bytes apart) as the bf16 A
+// fragments of a score product over KC columns
+template <int KC, int ABLOCK>
+__device__ __forceinline__ void held_fragments(uint32_t (&f)[KC / 16][4],
+                                               uint32_t a, int wr, int g,
+                                               int t) {
+#pragma unroll
+  for (int kk = 0; kk < KC / 16; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = kk * 16 + (e >> 1) * 8 + 2 * t, r = wr * 16 + g + (e & 1) * 8;
+      const uint32_t at = a + (c >> 6) * ABLOCK + r * 128 +
+                          ((((c & 63) >> 3) ^ (r & 7)) << 4) + (c & 7) * 2;
+      asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(f[kk][e]) : "r"(at));
+    }
+}
+
+// starts s (this warp's 16 rows of 64 x BN) = the A fragments `f` times the
+// BN rows of `b`, over KC columns; b K-major
+template <int KC, int BN>
+__device__ __forceinline__ void start_scores_rs(float (&s)[BN / 8][4],
+                                                const uint32_t (&f)[KC / 16][4],
+                                                uint32_t b) {
+  static_assert(BN == 64, "64-row streamed tiles");
+#pragma unroll
+  for (int kk = 0; kk < KC / 16; ++kk) {
+    const int k = kk * 16;
+    wgmma_rs_kn64(&s[0][0], f[kk],
+                  smem_desc(b + (k >> 6) * (BN * 128) + (k & 63) * 2, 16, 1024),
+                  kk);
+  }
+}
+
+// the two consumers' turns at the tensor cores: consumer c waits on
+// barrier 1 + c and passes to the other's
+__device__ __forceinline__ void turn_wait(int id) {
+  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ void turn_pass(int id) {
+  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+// kFwd's consumer warpgroup `cw`: o and lse of its 64 held Q rows (from
+// hr0; `q_rows` their slice of the held tile, read once into registers as
+// the score product's A fragments), walking the ring's K/V tiles up to the
+// one that holds its last row (none where the rows lie past s). One tile
+// ahead: tile j's q·kᵀ and tile j - 1's P·v are started together, and tile
+// j's softmax runs while P·v still holds the tensor cores; a stage is
+// released once its P·v is done. The starts that both consumers make go in
+// turns (named barriers 1 and 2, consumer 0 first), so one's softmax runs
+// under the other's products.
+template <int DQK, int DV, int BN, int STAGES>
+__device__ __forceinline__ void forward_rows(const TmaArgs& a, uint32_t q_rows,
+                                             uint32_t ring, uint32_t held_bar,
+                                             uint32_t full0, uint32_t empty0,
+                                             int n_tiles, int cw, int hr0,
+                                             const int row[2], int bh, int b,
+                                             int h, int wr, int lane) {
+  constexpr int kHeldBlock = 128 * 128;     // between the held tile's 64-column blocks
+  constexpr int kStage = BN * (DQK + DV) * 2;
+  constexpr int kB1 = BN * DQK * 2;          // V after K in a stage
+  const int seq = a.seq, g = lane >> 2, t = lane & 3;
+  auto tiles_of = [&](int r) { return r < seq ? min(n_tiles, (r + 63) / BN + 1) : 0; };
+  const int mine = tiles_of(hr0);
+  // starts: 0 (tile 0's S), j (tile j's S and tile j - 1's P·v), mine (the
+  // last P·v); the first `turns`, which both consumers make, in turns
+  const int both = min(tiles_of(hr0 - 64 * cw), tiles_of(hr0 - 64 * cw + 64));
+  const int turns = both > 0 ? both + 1 : 0;
+  auto take = [&](int k) {
+    if (k < turns) turn_wait(1 + cw);
+  };
+  auto pass = [&](int k) {
+    if (k < turns && !(cw == 1 && k == turns - 1)) turn_pass(2 - cw);
+  };
+  float m_i[2] = {-INFINITY, -INFINITY}, l_i[2] = {0.f, 0.f};
+  float acc[DV / 8][4];
+#pragma unroll
+  for (int n = 0; n < DV / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float sc[BN / 8][4];
+  uint32_t pf[BN / 16][4], qf[DQK / 16][4];
+  float alpha[2];
+
+  mbar_wait(held_bar, 0);
+  held_fragments<DQK, kHeldBlock>(qf, q_rows, wr, g, t);
+  if (cw == 1 && turns > 0) turn_pass(1);   // consumer 0 goes first
+  if (mine > 0) {                            // tile 0: S, its softmax
+    mbar_wait(full0, 0);
+    take(0);
+    wg_fence();
+    start_scores_rs<DQK, BN>(sc, qf, ring);
+    wg_commit();
+    pass(0);
+    wg_wait_for<0>();
+    pin(sc);
+    online_softmax<BN>(sc, m_i, l_i, alpha, 0, row, BN > hr0, a.scale, t);
+    to_fragments<BN>(sc, pf);                // acc is 0: nothing to rescale
+  }
+  for (int j = 1; j < mine; ++j) {
+    const int s = j % STAGES, sp = (j - 1) % STAGES;
+    mbar_wait(full0 + 8 * s, (j / STAGES) & 1);
+    take(j);
+    wg_fence();
+    start_scores_rs<DQK, BN>(sc, qf, ring + s * kStage);
+    wg_commit();
+    start_accumulate<DV, BN>(acc, pf, ring + sp * kStage + kB1);
+    wg_commit();
+    pass(j);
+    wg_wait_for<1>();                        // S of tile j
+    pin(sc);
+    online_softmax<BN>(sc, m_i, l_i, alpha, j * BN, row, (j + 1) * BN > hr0,
+                       a.scale, t);
+    wg_wait_for<0>();                        // o += p·v of tile j - 1
+    pin(acc);
+    pin(pf);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * sp);
+    if (alpha[0] != 1.f || alpha[1] != 1.f) {   // times 1 is exact: skipped
+#pragma unroll
+      for (int n = 0; n < DV / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+    }
+    to_fragments<BN>(sc, pf);
+  }
+  if (mine > 0) {                            // the last tile's P·v
+    const int sp = (mine - 1) % STAGES;
+    take(mine);
+    wg_fence();
+    start_accumulate<DV, BN>(acc, pf, ring + sp * kStage + kB1);
+    wg_commit();
+    pass(mine);
+    wg_wait_for<0>();
+    pin(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * sp);
+  }
+  for (int j = mine; j < n_tiles; ++j) {     // the block's tiles past these rows
+    const int s = j % STAGES;
+    mbar_wait(full0 + 8 * s, (j / STAGES) & 1);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * s);
+  }
+
+#pragma unroll
+  for (int n = 0; n < DV / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = acc[n][e] / l_i[e >> 1];
+  store_rows<DV>(acc, a.out1, row, b, h, a.heads, seq, t);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    if (t == 0 && row[i] < seq)
+      a.lse_out[(long long)bh * seq + row[i]] = m_i[i] + logf(l_i[i]);
+}
+
+// kFwd: o and lse of 128 Q rows, walking the K/V tiles up to the diagonal;
 // kDkv: dK and dV of 128 K/V rows, walking the Q/dO tiles from the
 // diagonal down; kDq: dQ of 128 Q rows, walking the K/V tiles up to the
 // diagonal. Warpgroup 0 is the producer (one warp starts the TMA copies and
@@ -898,7 +1178,7 @@ __global__ void __launch_bounds__(Pipe<KIND, DQK, DV>::kThreads, 1)
     attention_kernel_pipelined(const __grid_constant__ TmaArgs a) {
   using P = Pipe<KIND, DQK, DV>;
   constexpr int kBN = P::kBn;
-  constexpr bool kHoldsQ = KIND == kDq;
+  constexpr bool kHoldsQ = KIND == kDq || KIND == kFwd;
   constexpr int kHeldBlock = P::kHeldRows * 128;   // between 64-column blocks
   extern __shared__ __align__(128) uint8_t raw[];
   const uint32_t raw_at = static_cast<uint32_t>(__cvta_generic_to_shared(raw));
@@ -915,7 +1195,7 @@ __global__ void __launch_bounds__(Pipe<KIND, DQK, DV>::kThreads, 1)
   if (bh >= a.bh) return;
   const int b = bh / a.heads, h = bh % a.heads;
   const int seq = a.seq;
-  // the held tile's first row; kDq starts with the longest walks
+  // the held tile's first row; kFwd and kDq start with the longest walks
   const int r0 = (kHoldsQ ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * P::kHeldRows;
   const int first = kHoldsQ ? 0 : r0;
   const int last = kHoldsQ ? min(r0 + P::kHeldRows, seq) : seq;
@@ -939,9 +1219,11 @@ __global__ void __launch_bounds__(Pipe<KIND, DQK, DV>::kThreads, 1)
 #pragma unroll
       for (int c = 0; c < DQK / 64; ++c)
         tma_load(held1 + c * kHeldBlock, &a.held1, c * 64, h, r0, b, held_bar);
+      if constexpr (KIND != kFwd) {
 #pragma unroll
-      for (int c = 0; c < DV / 64; ++c)
-        tma_load(held2 + c * kHeldBlock, &a.held2, c * 64, h, r0, b, held_bar);
+        for (int c = 0; c < DV / 64; ++c)
+          tma_load(held2 + c * kHeldBlock, &a.held2, c * 64, h, r0, b, held_bar);
+      }
     }
     for (int j = 0; j < n_tiles; ++j) {
       const int s = j % P::kStages;
@@ -978,81 +1260,87 @@ __global__ void __launch_bounds__(Pipe<KIND, DQK, DV>::kThreads, 1)
   const int wr = warp & 3, g = lane >> 2, t = lane & 3;
   const int hr0 = r0 + 64 * cw;     // its held rows
   const int row[2] = {hr0 + wr * 16 + g, hr0 + wr * 16 + g + 8};
-  const uint32_t a1 = held1 + cw * 64 * 128, a2 = held2 + cw * 64 * 128;
-  float lse_r[2] = {0.f, 0.f}, d_r[2] = {0.f, 0.f};   // kDq: the held rows'
-  if (kHoldsQ) {
+  if constexpr (KIND == kFwd) {
+    forward_rows<DQK, DV, kBN, P::kStages>(a, held1 + cw * 64 * 128, ring,
+                                            held_bar, full0, empty0, n_tiles,
+                                            cw, hr0, row, bh, b, h, wr, lane);
+  } else {
+    const uint32_t a1 = held1 + cw * 64 * 128, a2 = held2 + cw * 64 * 128;
+    float lse_r[2] = {0.f, 0.f}, d_r[2] = {0.f, 0.f};   // kDq: the held rows'
+    if (kHoldsQ) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const long long at = (long long)bh * seq + row[i];
-      lse_r[i] = row[i] < seq ? a.lse[at] : INFINITY;
-      d_r[i] = row[i] < seq ? a.delta[at] : 0.f;
-    }
-  }
-  float acc1[DQK / 8][4];                          // dk or dq
-  float acc2[KIND == kDkv ? DV / 8 : 1][4];        // dv
-#pragma unroll
-  for (int n = 0; n < DQK / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc1[n][e] = 0.f;
-#pragma unroll
-  for (int n = 0; n < (KIND == kDkv ? DV / 8 : 1); ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc2[n][e] = 0.f;
-
-  mbar_wait(held_bar, 0);
-  for (int j = 0; j < n_tiles; ++j) {
-    const int s = j % P::kStages;
-    const int s0 = first + j * kBN;   // first row of the streamed tile
-    const uint32_t b1 = ring + s * P::kStage, b2 = b1 + P::kB1;
-    // some pair of this tile is on or below the diagonal for these rows;
-    // the diagonal crosses it
-    const bool live = kHoldsQ ? s0 <= hr0 + 63 : s0 + kBN - 1 >= hr0;
-    const bool diag = kHoldsQ ? s0 + kBN > hr0 : s0 < hr0 + 64;
-    mbar_wait(full0 + 8 * s, (j / P::kStages) & 1);
-
-    float sc[kBN / 8][4] = {}, dp[kBN / 8][4] = {};
-    if (live) {
-      wg_fence();
-      start_scores<DQK, kBN, kHeldBlock>(sc, a1, b1);
-      start_scores<DV, kBN, kHeldBlock>(dp, a2, b2);
-      wg_commit();
-      wg_wait();
-      const float* st = stats + s * 2 * kBN;
-#pragma unroll
-      for (int jn = 0; jn < kBN / 8; ++jn)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = jn * 8 + 2 * t + (e & 1);
-          const int r = row[e >> 1];
-          float x = __fmul_rn(bf16_round(sc[jn][e]), a.scale);
-          if (diag && (kHoldsQ ? s0 + col > r : s0 + col < r)) x = kMask;
-          const float lse = kHoldsQ ? lse_r[e >> 1] : st[col];
-          const float d = kHoldsQ ? d_r[e >> 1] : st[kBN + col];
-          const float p = fexp(x - lse);
-          dp[jn][e] = __fmul_rn(p * (dp[jn][e] - d), a.scale);
-          sc[jn][e] = p;
-        }
-      uint32_t df[kBN / 16][4], pf[kBN / 16][4];
-      to_fragments<kBN>(dp, df);
-      if constexpr (KIND == kDkv) {
-        to_fragments<kBN>(sc, pf);
-        wg_fence();
-        start_accumulate<DV, kBN>(acc2, pf, b2);    // dv += bf16(P)ᵀ·dO
-        start_accumulate<DQK, kBN>(acc1, df, b1);   // dk += dSᵀ·q
-      } else {
-        wg_fence();
-        start_accumulate<DQK, kBN>(acc1, df, b1);   // dq += dS·k
+      for (int i = 0; i < 2; ++i) {
+        const long long at = (long long)bh * seq + row[i];
+        lse_r[i] = row[i] < seq ? a.lse[at] : INFINITY;
+        d_r[i] = row[i] < seq ? a.delta[at] : 0.f;
       }
-      wg_commit();
-      wg_wait();
     }
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty0 + 8 * s);
-  }
+    float acc1[DQK / 8][4];                          // dk or dq
+    float acc2[KIND == kDkv ? DV / 8 : 1][4];        // dv
+#pragma unroll
+    for (int n = 0; n < DQK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc1[n][e] = 0.f;
+#pragma unroll
+    for (int n = 0; n < (KIND == kDkv ? DV / 8 : 1); ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc2[n][e] = 0.f;
 
-  store_rows<DQK>(acc1, a.out1, row, b, h, a.heads, seq, t);
-  if constexpr (KIND == kDkv)
-    store_rows<DV>(acc2, a.out2, row, b, h, a.heads, seq, t);
+    mbar_wait(held_bar, 0);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % P::kStages;
+      const int s0 = first + j * kBN;   // first row of the streamed tile
+      const uint32_t b1 = ring + s * P::kStage, b2 = b1 + P::kB1;
+      // some pair of this tile is on or below the diagonal for these rows;
+      // the diagonal crosses it
+      const bool live = kHoldsQ ? s0 <= hr0 + 63 : s0 + kBN - 1 >= hr0;
+      const bool diag = kHoldsQ ? s0 + kBN > hr0 : s0 < hr0 + 64;
+      mbar_wait(full0 + 8 * s, (j / P::kStages) & 1);
+
+      float sc[kBN / 8][4] = {}, dp[kBN / 8][4] = {};
+      if (live) {
+        wg_fence();
+        start_scores<DQK, kBN, kHeldBlock>(sc, a1, b1);
+        start_scores<DV, kBN, kHeldBlock>(dp, a2, b2);
+        wg_commit();
+        wg_wait();
+        const float* st = stats + s * 2 * kBN;
+#pragma unroll
+        for (int jn = 0; jn < kBN / 8; ++jn)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = jn * 8 + 2 * t + (e & 1);
+            const int r = row[e >> 1];
+            float x = __fmul_rn(bf16_round(sc[jn][e]), a.scale);
+            if (diag && (kHoldsQ ? s0 + col > r : s0 + col < r)) x = kMask;
+            const float lse = kHoldsQ ? lse_r[e >> 1] : st[col];
+            const float d = kHoldsQ ? d_r[e >> 1] : st[kBN + col];
+            const float p = fexp(x - lse);
+            dp[jn][e] = __fmul_rn(p * (dp[jn][e] - d), a.scale);
+            sc[jn][e] = p;
+          }
+        uint32_t df[kBN / 16][4], pf[kBN / 16][4];
+        to_fragments<kBN>(dp, df);
+        if constexpr (KIND == kDkv) {
+          to_fragments<kBN>(sc, pf);
+          wg_fence();
+          start_accumulate<DV, kBN>(acc2, pf, b2);    // dv += bf16(P)ᵀ·dO
+          start_accumulate<DQK, kBN>(acc1, df, b1);   // dk += dSᵀ·q
+        } else {
+          wg_fence();
+          start_accumulate<DQK, kBN>(acc1, df, b1);   // dq += dS·k
+        }
+        wg_commit();
+        wg_wait();
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * s);
+    }
+
+    store_rows<DQK>(acc1, a.out1, row, b, h, a.heads, seq, t);
+    if constexpr (KIND == kDkv)
+      store_rows<DV>(acc2, a.out2, row, b, h, a.heads, seq, t);
+  }
 }
 
 // CUresult cuTensorMapEncodeTiled(...), fetched from the driver at run time
@@ -1111,17 +1399,22 @@ int launch(const PairArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// One launch of the pair's backward (kind kDkv: dk to a.out, dv to `out2`;
-// kind kDq: dq to a.out).
+// One launch of the pair's pipelined kernels (kind kFwd: o to a.out, lse
+// to a.lse_out; kind kDkv: dk to a.out, dv to `out2`; kind kDq: dq to
+// a.out).
 template <int KIND, int DQK, int DV>
 int launch_pipelined(const PairArgs& a, void* out2, cudaStream_t stream) {
   using P = Pipe<KIND, DQK, DV>;
   const int batch = a.bh / a.heads;
   // dO: contiguous [b, s, h, DV]
   const long long doh = DV, dos = (long long)a.heads * DV, dob = dos * a.seq;
-  TmaArgs t;
+  TmaArgs t{};
   const bool ok =
-      KIND == kDq
+      KIND == kFwd
+          ? tensor_map(&t.held1, a.q, DQK, a.heads, a.seq, batch, a.sqh, a.sqs, a.sqb, P::kHeldRows) &&
+            tensor_map(&t.stream1, a.k, DQK, a.heads, a.seq, batch, a.skh, a.sks, a.skb, P::kBn) &&
+            tensor_map(&t.stream2, a.v, DV, a.heads, a.seq, batch, a.svh, a.svs, a.svb, P::kBn)
+      : KIND == kDq
           ? tensor_map(&t.held1, a.q, DQK, a.heads, a.seq, batch, a.sqh, a.sqs, a.sqb, P::kHeldRows) &&
             tensor_map(&t.held2, a.dout, DV, a.heads, a.seq, batch, doh, dos, dob, P::kHeldRows) &&
             tensor_map(&t.stream1, a.k, DQK, a.heads, a.seq, batch, a.skh, a.sks, a.skb, P::kBn) &&
@@ -1139,6 +1432,7 @@ int launch_pipelined(const PairArgs& a, void* out2, cudaStream_t stream) {
   t.heads = a.heads;
   t.seq = a.seq;
   t.scale = a.rinv;
+  t.lse_out = a.lse_out;
   const cudaError_t e = cudaFuncSetAttribute(
       attention_kernel_pipelined<KIND, DQK, DV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmem);
@@ -1149,13 +1443,13 @@ int launch_pipelined(const PairArgs& a, void* out2, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Equal widths: the four lock-step kinds. The pair: the forward as they
-// run it, the backward as kinds kDkv and kDq on the pipeline.
+// Equal widths: the four lock-step kinds. The pair: the forward and the
+// backward's kinds kDkv and kDq, each on the pipeline.
 template <int DQK, int DV, bool SCALE>
 int launch_kind(int kind, const PairArgs& a, void* out2, cudaStream_t stream) {
   if constexpr (DQK != DV) {
     switch (kind) {
-      case kFwd: return launch<kFwd, DQK, DV, SCALE>(a, stream);
+      case kFwd: return launch_pipelined<kFwd, DQK, DV>(a, out2, stream);
       case kDkv: return launch_pipelined<kDkv, DQK, DV>(a, out2, stream);
       case kDq: return launch_pipelined<kDq, DQK, DV>(a, out2, stream);
     }
@@ -1173,8 +1467,7 @@ int launch_kind(int kind, const PairArgs& a, void* out2, cudaStream_t stream) {
 template <int KIND>
 int smem_of(int dqk, int dv) {
   if (dqk == 192 && dv == 128) {
-    if constexpr (KIND == kFwd) return Plan<KIND, 192, 128>::kSmem;
-    else if constexpr (KIND == kDkv || KIND == kDq) return Pipe<KIND, 192, 128>::kSmem;
+    if constexpr (KIND == kFwd || KIND == kDkv || KIND == kDq) return Pipe<KIND, 192, 128>::kSmem;
     else return -1;
   }
   if constexpr (KIND == kDkv) return -1;

@@ -15,8 +15,9 @@ held in a `torch.autograd.Function`; an f32 or CPU input takes
 `attention_reference`, the plain PyTorch chain, operation for operation;
 any other input raises. `causal_attention.launches` counts the kernels'
 launches: `LAUNCHES_FORWARD` a forward, `LAUNCHES_BACKWARD[(dqk, dv)]` a
-backward; `causal_attention.fused_backward_launches` the pair's fused
-dK·dV walk.
+backward; `causal_attention.pipelined_forward_launches` the pair's
+pipelined forward walk, `causal_attention.fused_backward_launches` its
+fused dK·dV walk.
 
 Source note:
 
@@ -30,8 +31,8 @@ Source note:
   run by wgmma from tiles in shared memory; at dh = 512 far above the
   card's 295 operations a byte, and in practice held back by re-reading
   the streamed tiles from L2 and by the softmax running between the
-  products. The pair's backward is two warp-specialised walks fed by TMA,
-  which overlap those (the kernels' header).
+  products. At the pair the forward and the backward are warp-specialised
+  walks fed by TMA, which overlap those (the kernels' header).
 * The library is built for head widths `WIDTHS` (q, k and v alike) and
   for the pairs of q·k and v widths in `PAIRS`, which take a scale. A head
   width between the `WIDTHS` runs at the next one up, q, k and v copied
@@ -156,6 +157,7 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 causal_attention.launches = 0
+causal_attention.pipelined_forward_launches = 0
 causal_attention.fused_backward_launches = 0
 
 
@@ -285,6 +287,8 @@ def _launch_forward(q, k, v, dh: int | None = None,
     lse = torch.empty((bsz, h, seq), dtype=torch.float32, device=q.device)
     _launch("fwd", q, k, v, o, dh or width, scale, lse_out=lse)
     causal_attention.launches += LAUNCHES_FORWARD
+    causal_attention.pipelined_forward_launches += int(
+        (width, v.shape[3]) in PAIRS)
     return o, lse
 
 

@@ -98,7 +98,7 @@ def _parts(r0, held, parts, seq):
 
 
 def tiled_attention(q, k, v, do, held, streamed, scale=None, kv_walk=None,
-                    q_walk=None):
+                    q_walk=None, fwd_walk=None):
     """The kernels' walks in plain f32 PyTorch, for [b, s, h, dh] inputs
     (v and dO may be narrower; `scale` in place of 1/sqrt(dh)):
     forward per `held`-row Q tile over `streamed`-row K/V tiles, skipping
@@ -106,18 +106,18 @@ def tiled_attention(q, k, v, do, held, streamed, scale=None, kv_walk=None,
     crosses, with an online max and sum; the log-sum-exp; D = rowsum(dO∘O);
     dK and dV in one walk per held K tile over Q tiles from the diagonal
     down, P and dS formed once for both; dQ per held Q tile over K tiles up
-    to it. `kv_walk` and `q_walk`, where given, are those walks' own (held rows,
-    streamed rows, parts): each held tile is cut into `parts` row groups
-    (the pair's consumer warpgroups) that skip the streamed tiles wholly
-    masked for them. Returns (o [b, s, h·dh], dq, dk, dv, tiles skipped in
-    forward)."""
+    to it. `fwd_walk`, `kv_walk` and `q_walk`, where given, are those walks'
+    own (held rows, streamed rows, parts): each held tile is cut into
+    `parts` row groups (the pair's consumer warpgroups) that skip the
+    streamed tiles wholly masked for them, and a forward part wholly past s
+    all of them. Returns (o [b, s, h·dh], dq, dk, dv, the forward's skipped
+    streamed tiles per part)."""
     bsz, seq, h, dh = q.shape
     dv_w = v.shape[3]
     root = torch.tensor(math.sqrt(dh)) if scale is None else 1 / torch.tensor(scale)
     qh, kh, vh, doh = (t.transpose(1, 2) for t in (q, k, v, do))
     o = torch.zeros_like(vh)
     lse = torch.zeros(qh.shape[:3])
-    skipped = 0
 
     def scores(rows, cols, diagonal):
         s = qh[:, :, rows] @ kh[:, :, cols].transpose(-1, -2) / root
@@ -127,26 +127,30 @@ def tiled_attention(q, k, v, do, held, streamed, scale=None, kv_walk=None,
             return s
         return torch.where(seen, s, attention.MASK)
 
-    for m0 in range(0, seq, held):
-        rows = torch.arange(m0, min(m0 + held, seq))
-        m_i = torch.full(qh.shape[:2] + (len(rows),), -math.inf)
-        l_i = torch.zeros_like(m_i)
-        acc = torch.zeros(qh.shape[:2] + (len(rows), dv_w))
-        for n0 in range(0, seq, streamed):
-            cols = torch.arange(n0, min(n0 + streamed, seq))
-            if n0 >= min(m0 + held, seq):
-                assert bool((cols[:, None] > rows[None, :]).all())
-                skipped += 1
-                continue
-            s = scores(rows, cols, n0 + streamed > m0)
-            m_new = torch.maximum(m_i, s.amax(-1))
-            p = torch.exp(s - m_new[..., None])
-            alpha = torch.exp(m_i - m_new)
-            l_i = l_i * alpha + p.sum(-1)
-            acc = acc * alpha[..., None] + p @ vh[:, :, cols]
-            m_i = m_new
-        o[:, :, rows] = acc / l_i[..., None]
-        lse[:, :, rows] = m_i + torch.log(l_i)
+    fwd_held, fwd_streamed, fwd_parts = fwd_walk or (held, streamed, 1)
+    sub = fwd_held // fwd_parts
+    skipped = [0] * fwd_parts
+    for m0 in range(0, seq, fwd_held):
+        for part, c0 in enumerate(range(m0, m0 + fwd_held, sub)):
+            rows = torch.arange(min(c0, seq), min(c0 + sub, seq))
+            m_i = torch.full(qh.shape[:2] + (len(rows),), -math.inf)
+            l_i = torch.zeros_like(m_i)
+            acc = torch.zeros(qh.shape[:2] + (len(rows), dv_w))
+            for n0 in range(0, seq, fwd_streamed):
+                cols = torch.arange(n0, min(n0 + fwd_streamed, seq))
+                if c0 >= seq or n0 >= c0 + sub:  # past s, or above the diagonal
+                    assert bool((cols[:, None] > rows[None, :]).all())
+                    skipped[part] += 1
+                    continue
+                s = scores(rows, cols, n0 + fwd_streamed > c0)
+                m_new = torch.maximum(m_i, s.amax(-1))
+                p = torch.exp(s - m_new[..., None])
+                alpha = torch.exp(m_i - m_new)
+                l_i = l_i * alpha + p.sum(-1)
+                acc = acc * alpha[..., None] + p @ vh[:, :, cols]
+                m_i = m_new
+            o[:, :, rows] = acc / l_i[..., None]
+            lse[:, :, rows] = m_i + torch.log(l_i)
     delta = (doh * o).sum(-1)
     dq, dk, dv = torch.zeros_like(qh), torch.zeros_like(kh), torch.zeros_like(vh)
     kv_held, kv_streamed, kv_parts = kv_walk or (held, streamed, 1)
@@ -199,17 +203,28 @@ def test_tile_walk_matches_autograd_of_the_plain_version(seq, dh, held,
     *got, skipped = tiled_attention(q.detach(), k.detach(), v.detach(),
                                     do.reshape(q.shape), held, streamed)
     n_tiles = -(-seq // streamed)
-    assert skipped == sum(max(0, n_tiles - -(-min(m0 + held, seq) // streamed))
-                          for m0 in range(0, seq, held)) > 0
+    assert skipped == [sum(max(0, n_tiles - -(-min(m0 + held, seq) // streamed))
+                           for m0 in range(0, seq, held))]
+    assert skipped[0] > 0
     # the same f32 arithmetic summed in another order (tiles, the online
     # rescaling, D for rowsum(dP∘P)): a few f32 steps of entries up to ~10
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w.detach(), rtol=1e-5, atol=1e-5)
 
 
-# the pair's backward tiles: `held` as (forward, backward held rows, parts),
-# `streamed` as (forward, dK·dV walk, dQ walk)
-PAIR_HELD, PAIR_STREAMED = (64, 128, 2), (64, 64, 64)
+# the pair's kernels' tiles: `held` as (held rows, parts), `streamed` as
+# (forward, dK·dV walk, dQ walk)
+PAIR_HELD, PAIR_STREAMED = (128, 2), (64, 64, 64)
+
+
+def forward_skips(seq, held, streamed, parts):
+    """The streamed tiles each part of the forward's held tiles skips: those
+    from the one past its last row (its rows' diagonal, or s) to the last,
+    and all of them for a part wholly past s."""
+    n_tiles, sub = -(-seq // streamed), held // parts
+    return [sum(n_tiles - (-(-min(c0 + sub, seq) // streamed) if c0 < seq else 0)
+                for c0 in range(part * sub, -(-seq // held) * held, held))
+            for part in range(parts)]
 
 
 @pytest.mark.parametrize("seq,held,streamed", [
@@ -221,20 +236,21 @@ PAIR_HELD, PAIR_STREAMED = (64, 128, 2), (64, 64, 64)
     pytest.param(200, PAIR_HELD, PAIR_STREAMED, id="pair-200"),
     pytest.param(256, PAIR_HELD, PAIR_STREAMED, id="pair-256"),
     # the same walks at thin tiles: many skipped and crossed tiles
-    pytest.param(37, (16, 16, 2), (8, 4, 8), id="pair-thin-37"),
+    pytest.param(37, (16, 2), (8, 4, 8), id="pair-thin-37"),
 ])
 def test_tile_walk_at_latent_widths_matches_autograd_of_the_plain_version(
         seq, held, streamed):
     """q and k 192 wide, v 128 (a view of a wider kv product), scores
     times the softmax scale: the walks with the widths apart; at the pair's
-    tiles, the fused dK·dV walk and the dQ walk over 128 held rows as two
-    warpgroups' 64."""
+    tiles, the forward walk, the fused dK·dV walk and the dQ walk over 128
+    held rows as two warpgroups' 64, each skipping the streamed tiles
+    wholly masked for its own rows."""
     walks = {}
     if isinstance(held, tuple):
-        (held, bwd_held, parts), (streamed, kv_streamed, q_streamed) = \
-            held, streamed
-        walks = dict(kv_walk=(bwd_held, kv_streamed, parts),
-                     q_walk=(bwd_held, q_streamed, parts))
+        (held, parts), (streamed, kv_streamed, q_streamed) = held, streamed
+        walks = dict(fwd_walk=(held, streamed, parts),
+                     kv_walk=(held, kv_streamed, parts),
+                     q_walk=(held, q_streamed, parts))
     gen = torch.Generator().manual_seed(seq)
     q, k = (torch.randn((2, seq, 2, 192), generator=gen).requires_grad_()
             for _ in range(2))
@@ -245,9 +261,11 @@ def test_tile_walk_at_latent_widths_matches_autograd_of_the_plain_version(
     assert out.shape == (2, seq, 2 * 128)
     do = torch.randn(out.shape, generator=torch.Generator().manual_seed(7))
     want = (out, *torch.autograd.grad(out, (q, k, v), do))
-    *got, _ = tiled_attention(q.detach(), k.detach(), v.detach(),
-                              do.reshape(2, seq, 2, 128), held, streamed, scale,
-                              **walks)
+    *got, skipped = tiled_attention(q.detach(), k.detach(), v.detach(),
+                                    do.reshape(2, seq, 2, 128), held, streamed,
+                                    scale, **walks)
+    parts = walks["fwd_walk"][2] if walks else 1
+    assert skipped == forward_skips(seq, held, streamed, parts)
     # as the square walks above: the same f32 arithmetic in another order
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w.detach(), rtol=1e-5, atol=1e-5)
@@ -491,6 +509,47 @@ def test_backward_launches_the_plan_of_its_widths(widths, monkeypatch):
         attention.KINDS[kind] for kind in kinds[1:]}
 
 
+@pytest.mark.parametrize("widths", [(w, w) for w in attention.WIDTHS]
+                         + list(attention.PAIRS))
+def test_forward_launches_the_walk_of_its_widths(widths, monkeypatch):
+    """`_launch_forward` makes one `fwd` launch into o and lse and counts
+    it; at the pair it also counts the pipelined forward walk, at equal
+    widths not; the library's dispatch sends the pair's forward to the
+    pipeline and the equal widths' to the lock-step kernel."""
+    dqk, dv = widths
+    calls = []
+
+    class Library:
+        def ko_attention(self, kind, w1, w2, q, k, v, do, lse, delta, out,
+                         out2, lse_out, *_):
+            calls.append((kind, w1, w2, out, lse_out))
+            return 0
+
+    monkeypatch.setattr(attention, "_library", Library)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=0))
+    q, k = (torch.zeros((1, 8, 2, dqk), dtype=torch.bfloat16)
+            for _ in range(2))
+    v = torch.zeros((1, 8, 2, dv), dtype=torch.bfloat16)
+    launches = causal_attention.launches
+    pipelined = causal_attention.pipelined_forward_launches
+    o, lse = attention._launch_forward(q, k, v, dqk,
+                                       None if dqk == dv else 0.1)
+    assert o.shape == (1, 8, 2, dv) and lse.shape == (1, 2, 8)
+    assert calls == [(attention.KINDS["fwd"], dqk, dv, o.data_ptr(),
+                      lse.data_ptr())]
+    assert causal_attention.launches == launches + attention.LAUNCHES_FORWARD
+    assert causal_attention.pipelined_forward_launches == pipelined + (
+        dqk != dv)
+    src = (Path(attention.__file__).parents[1] / "csrc"
+           / "attention.cu").read_text()
+    body = src[src.index("int launch_kind("):]
+    pair, square = body[:body.index("} else {")], body[body.index("} else {"):]
+    branch = pair if dqk != dv else square[:square.index("return cudaErrorInvalidValue")]
+    launcher = re.search(r"case kFwd: return (\w+)<", branch).group(1)
+    assert launcher == ("launch_pipelined" if dqk != dv else "launch")
+
+
 @pytest.mark.parametrize("dh,width", [(1, 64), (8, 64), (64, 64), (65, 128),
                                       (96, 128), (200, 256), (512, 512)])
 def test_a_head_width_runs_at_the_next_built_width(dh, width):
@@ -652,12 +711,14 @@ def test_forward_launches_the_kernels_once_forward_and_back(dev):
     bwd = attention.LAUNCHES_BACKWARD[(512, 512)]
     before = causal_attention.launches
     fused = causal_attention.fused_backward_launches
+    pipelined = causal_attention.pipelined_forward_launches
     y = dense.forward(params, x, cfg)
     assert causal_attention.launches == before + fwd
     y.float().square().sum().backward()
     torch.cuda.synchronize()
     assert causal_attention.launches == before + fwd + bwd
     assert causal_attention.fused_backward_launches == fused
+    assert causal_attention.pipelined_forward_launches == pipelined
     with torch.no_grad():
         dense.forward(params, x, cfg)
     assert causal_attention.launches == before + 2 * fwd + bwd
@@ -665,13 +726,15 @@ def test_forward_launches_the_kernels_once_forward_and_back(dev):
     dense.forward({k: t.detach().float() for k, t in params.items()},
                   x.float(), f32)
     assert causal_attention.launches == before + 2 * fwd + bwd
-    # the pair: three launches back, one of them the fused dK·dV walk
+    # the pair: the pipelined forward walk, three launches back, one of them
+    # the fused dK·dV walk
     q, k, kv, do = _latent_on_card(1, 256, 2, dev)
     before = causal_attention.launches
     _latent_run(q, k, kv, do)
     torch.cuda.synchronize()
     assert attention.LAUNCHES_BACKWARD[(192, 128)] == 3
     assert causal_attention.launches == before + fwd + 3
+    assert causal_attention.pipelined_forward_launches == pipelined + 1
     assert causal_attention.fused_backward_launches == fused + 1
 
 
@@ -729,10 +792,12 @@ def test_latent_kernels_match_the_plain_version_on_the_card(dev, shape):
     the softmax scale: the same two limits as the square widths."""
     q, k, kv, do = _latent_on_card(*shape, dev)
     launches = causal_attention.launches
+    pipelined = causal_attention.pipelined_forward_launches
     fused = causal_attention.fused_backward_launches
     got = _latent_run(q, k, kv, do)
     assert causal_attention.launches == launches + attention.LAUNCHES_FORWARD \
         + attention.LAUNCHES_BACKWARD[(192, 128)]
+    assert causal_attention.pipelined_forward_launches == pipelined + 1
     assert causal_attention.fused_backward_launches == fused + 1
     want = _latent_run(q, k, kv, do, heads=16)
     torch.cuda.synchronize()
@@ -745,9 +810,25 @@ def test_latent_kernels_match_the_plain_version_on_the_card(dev, shape):
             name, float(err), float(worst))
 
 
+# the bit-identity tests' shapes: the cell's row length, ragged lengths,
+# a second warpgroup past s, one held tile
+LATENT_TWIN_SHAPES = [(1, 8192, 64), (1, 1000, 3), (3, 129, 5), (2, 64, 7)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(1, 8192, 64), (1, 1000, 3), (3, 129, 5),
-                                   (2, 64, 7)])
+@pytest.mark.parametrize("shape", LATENT_TWIN_SHAPES)
+def test_latent_forward_is_bit_identical_run_to_run(dev, shape):
+    q, k, kv, _ = _latent_on_card(*shape, dev, seed=3)
+    x = (q.detach(), k.detach(), kv.detach()[..., 128:], 192, LATENT_SCALE)
+    first = attention._launch_forward(*x)
+    second = attention._launch_forward(*x)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", LATENT_TWIN_SHAPES)
 def test_latent_backward_is_bit_identical_run_to_run(dev, shape):
     q, k, kv, do = _latent_on_card(*shape, dev, seed=3)
     first = _latent_run(q, k, kv, do)
